@@ -5,27 +5,40 @@
 
 Phases:
   1. device    the card's name and power limit, torch / CUDA / nvcc versions
-  2. build     nvcc over stereo_reconstruction_cv_tpu_torch/csrc, g++ over
-               native/speckle.cc, timed
+  2. build     nvcc over stereo_reconstruction_cv_tpu_torch/csrc (one process
+               per source, in parallel), g++ over native/speckle.cc, timed
   3. kernels   each CUDA kernel against its plain PyTorch version on the card,
                at 1280x720 x 128 (5 and 8 directions) and at a ragged
                721x1283 x 96 with min_disp 5: integer maps, masks and the f32
-               disparity must be EQUAL; CUDA-event times of both
-  4. 720p      the 720p SGBM call (8 paths, LR check, host speckle) and the
-               CLI's chain disparity -> reconstruct -> PLY, on a synthetic pair
+               disparity must be EQUAL; sgm_aggregate (the full S volume) and
+               wta_maps(sgm_aggregate(C)) == sgm_wta(C); the speckle labels
+               and keep masks on speckled maps of both sizes; CUDA-event times
+  4. 720p      config 2 as the reference runs it: sgbm_disparity, 128
+               disparities, 8 paths, LR check, device speckle (the default
+               "propagate"), and the same with the host speckle (equal masks);
+               the CLI's chain disparity -> reconstruct -> PLY; synthetic pair
                with a known shift
-  5. 4K        3840x2160 x 256, 5 paths: stereo_rectify -> rectify_remap ->
-               compute_disparity_map -> reproject -> PLY, the rig of the
-               reference's 4K benchmark; every kernel's launch count must rise;
-               s/pair (cold, then median of warm runs), stages, peak memory,
-               device idle share under torch.profiler
+  5. 4K        3840x2160 x 256, 5 paths, the rig of the reference's 4K
+               benchmark: the pair -> PLY chain (stereo_rectify ->
+               rectify_remap -> compute_disparity_map -> reproject -> PLY, host
+               speckle), and config 3's device chain (rectify_remap ->
+               sgbm_disparity_auto -> _speckle "propagate" -> reproject ->
+               masked sum); s/pair
+               (cold, then median of warm runs), stages, peak memory, device
+               idle share under torch.profiler
   6. 4K plain  on that frame's rectified pair, each kernel against its plain
                version at D = 256 (cost in row bands with the box halo, each
                path direction alone and as the accumulated group, the fused
                sweep + WTA in row bands, the LR check), all EQUAL; the plain
-               chain's disparity map equals the main path's; kernel times
-Launch counts are zeroed just before phase 4 and read right after phase 5's
-last run, so they count the main path's launches only. Prints one JSON line
+               chain's disparity map equals the main path's; the speckle
+               labels against the plain flood's fixpoint and the keep mask
+               against the host filter on the frame's maps, a speckled random
+               map and a serpentine of 40 turns; kernel times
+Each main path of phases 4 and 5 (config 2 with device, host and no speckle,
+the 720p CLI chain, the 4K pair -> PLY, config 3's chain) runs with the launch
+counts zeroed just before it and read just after: every kernel it should run
+must have launched in it, and a path with the host speckle must launch no
+speckle kernel. The kernels line sums the paths' counts. Prints one JSON line
 of kernel results before the last line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, without that line, when a
 phase fails or no CUDA device is present. Imports no JAX.
@@ -33,6 +46,7 @@ phase fails or no CUDA device is present. Imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -53,12 +67,17 @@ KERNELS = {
     "cost_volume": ("stereo_reconstruction_cv_tpu_torch/csrc/cost_volume.cu",
                     "stereo_reconstruction_cv_tpu/ops/pallas/cost_pallas.py:222"),
     "sgm_path_sweep": ("stereo_reconstruction_cv_tpu_torch/csrc/sgm.cu",
-                       "stereo_reconstruction_cv_tpu/ops/pallas/sgm_pallas.py:563"),
+                       "stereo_reconstruction_cv_tpu/ops/pallas/sgm_pallas.py:563, :617, :840"),
     "sgm_sweep_wta": ("stereo_reconstruction_cv_tpu_torch/csrc/sgm.cu",
                       "stereo_reconstruction_cv_tpu/ops/pallas/sgm_pallas.py:505"),
     "lr_check": ("stereo_reconstruction_cv_tpu_torch/csrc/lr_check.cu",
                  "stereo_reconstruction_cv_tpu/ops/pallas/lr_pallas.py:130"),
+    "speckle_labels": ("stereo_reconstruction_cv_tpu_torch/csrc/speckle.cu",
+                       "stereo_reconstruction_cv_tpu/ops/pallas/speckle_pallas.py:172, :278"),
+    "speckle_keep": ("stereo_reconstruction_cv_tpu_torch/csrc/speckle.cu",
+                     "stereo_reconstruction_cv_tpu/ops/disparity.py:542"),
 }
+SPECKLE_DIFF = 5.0  # max_diff of the synthetic speckle maps
 
 
 def log(msg: str) -> None:
@@ -72,6 +91,31 @@ def textured_pair(rng, H: int, W: int, shift: int):
     base = sum(n[i:i + H, j:j + W + shift] for i in range(3) for j in range(3)) / 9.0
     base = np.clip((base - base.mean()) * 3.0 + 128.0, 0, 255).astype(np.uint8)
     return base[:, :W].copy(), base[:, shift:].copy()
+
+
+def speckled_map(rng, H: int, W: int, p_invalid: float = 0.4, block: int = 1):
+    """(disp f32, valid bool): random disparities x60, constant over
+    block x block squares, a share p_invalid of the pixels invalid."""
+    coarse = rng.random((-(-H // block), -(-W // block))) * 60
+    disp = np.repeat(np.repeat(coarse, block, 0), block, 1)[:H, :W].astype(np.float32)
+    valid = rng.random((H, W)) >= p_invalid
+    return np.where(valid, disp, 0.0).astype(np.float32), valid
+
+
+def serpentine_map(rng, H: int, W: int, turns: int):
+    """One valid snake of disparity 30 +- 1: turns + 1 horizontal stripes,
+    each joined to the next at alternate ends, so a min-label flood needs
+    about one round per turn."""
+    pitch = H // (turns + 1)
+    thick = max(1, pitch * 3 // 4)
+    valid = np.zeros((H, W), bool)
+    for k in range(turns + 1):
+        y = k * pitch
+        valid[y:y + thick, 8:W - 8] = True
+        if k < turns:
+            valid[y + thick:y + pitch, (W - 16, 8)[k % 2]:(W - 8, 16)[k % 2]] = True
+    disp = 30.0 + rng.uniform(-1.0, 1.0, (H, W))
+    return np.where(valid, disp, 0.0).astype(np.float32), valid
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -169,6 +213,7 @@ def main() -> int:
         from stereo_reconstruction_cv_tpu_torch.ops.cuda import cost as CK
         from stereo_reconstruction_cv_tpu_torch.ops.cuda import lr as LK
         from stereo_reconstruction_cv_tpu_torch.ops.cuda import sgm as SK
+        from stereo_reconstruction_cv_tpu_torch.ops.cuda import speckle as SPK
         from stereo_reconstruction_cv_tpu_torch.pipeline import stages
     except ImportError as e:
         log(f"FAIL import: {e} (run from the root of a checkout of the repository)")
@@ -241,6 +286,31 @@ def main() -> int:
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain version (max |err| {err})")
 
+    def check_speckle(label, disp, valid, Ts, reps=5, max_diff=SPECKLE_DIFF):
+        """Speckle kernels vs the plain flood's fixpoint (which must converge
+        within its max_rounds) and its bincount keep, for each T; CUDA-event
+        times of both at Ts[-1]. -> (labels ms, plain, keep ms, plain)."""
+        labels = SPK.speckle_labels_cuda(disp, valid, max_diff)
+        ref, converged = SPK.speckle_labels_plain(disp, valid, max_diff)
+        if not converged:
+            raise AssertionError(f"{label}: the plain flood did not converge in "
+                                 f"{SPK.MAX_ROUNDS} rounds")
+        note("speckle_labels", max_err(torch, labels, ref))
+        for T in Ts:
+            keep = SPK.speckle_keep_cuda(labels, valid, T)
+            note("speckle_keep", max_err(torch, keep, SPK.speckle_keep_plain(ref, valid, T)))
+        T = Ts[-1]
+        times = (cuda_ms(torch, lambda: SPK.speckle_labels_cuda(disp, valid, max_diff), reps),
+                 cuda_ms(torch, lambda: SPK.speckle_labels_plain(disp, valid, max_diff), 3),
+                 cuda_ms(torch, lambda: SPK.speckle_keep_cuda(labels, valid, T), reps),
+                 cuda_ms(torch, lambda: SPK.speckle_keep_plain(ref, valid, T), 3))
+        log(f"[{label} {tuple(disp.shape)}] speckle_labels: equal to the plain fixpoint; "
+            f"kernel {times[0]:.3f} ms, plain {times[1]:.3f} ms; "
+            f"{int(valid.sum().item())} valid pixels in {int(torch.unique(labels[valid]).numel())} components")
+        log(f"[{label}] speckle_keep: equal for T in {list(Ts)}; kernel {times[2]:.3f} ms, "
+            f"plain {times[3]:.3f} ms; keep share at T={T} {keep.float().mean().item():.4f}")
+        return times
+
     @phase("3 kernels vs plain")
     def _():
         rng = np.random.default_rng(SEED)
@@ -295,17 +365,53 @@ def main() -> int:
                     results["sgm_sweep_wta"].update(ms=t_wk, plain_ms=t_wp)
                     results["lr_check"].update(ms=t_lk, plain_ms=t_lp)
                 del vols, vols_p, partial
+                if label == "720p":
+                    # The S-volume entry point: every direction through the
+                    # path-sweep kernel; its WTA gives sgm_wta's maps.
+                    dirs_nd = SK.directions_for(nd)
+                    S = SK.sgm_aggregate(C, p1, p2, dirs_nd)
+                    note("sgm_path_sweep", max_err(torch, S, SK.sgm_aggregate_plain(C, p1, p2, dirs_nd)))
+                    if max(max_err(torch, a, b) for a, b in zip(SK.wta_maps(S, md, ur), chain)) != 0:
+                        raise AssertionError(f"wta_maps(sgm_aggregate(C)) != sgm_wta(C), {nd} paths")
+                    del S
+                    t_ak = cuda_ms(torch, lambda: SK.sgm_aggregate(C, p1, p2, dirs_nd), 3)
+                    t_ap = cuda_ms(torch, lambda: SK.sgm_aggregate_plain(C, p1, p2, dirs_nd), 1)
+                    log(f"[{label} {nd}-dir] sgm_aggregate (S volume): equal; "
+                        f"wta_maps(S) == sgm_wta; kernels {t_ak:.3f} ms, plain {t_ap:.3f} ms")
             del C
             torch.cuda.empty_cache()
+            disp_np, valid_np = speckled_map(rng, H, W)
+            times = check_speckle(label, torch.from_numpy(disp_np).to(dev),
+                                  torch.from_numpy(valid_np).to(dev), (20, 100))
+            if label == "720p":
+                results["speckle_labels"].update(ms=times[0], plain_ms=times[1])
+                results["speckle_keep"].update(ms=times[2], plain_ms=times[3])
 
-    # The main path (phases 4 and 5): counts start at zero here and are read
-    # right after phase 5's last run, before phase 6 calls kernels directly.
-    for mod in (CK, SK, LK):
-        for k in mod.launches:
-            mod.launches[k] = 0
+    # The main paths (phases 4 and 5): each runs with every launch count set
+    # to 0 just before it and read just after, so each shows its own
+    # launches, and the direct calls of phases 3 and 6 count in none. The
+    # kernels line reports the paths' sum.
+    dense = ("cost_volume", "sgm_path_sweep", "sgm_sweep_wta", "lr_check")
+    speckle = ("speckle_labels", "speckle_keep")
+    main_counts = dict.fromkeys(KERNELS, 0)
 
-    def counts():
-        return {**CK.launches, **SK.launches, **LK.launches}
+    @contextlib.contextmanager
+    def main_path(label, launched, not_launched=()):
+        """Counts zeroed before the body and read after it: each kernel of
+        `launched` must have run in it, none of `not_launched`."""
+        for mod in (CK, SK, LK, SPK):
+            for k in mod.launches:
+                mod.launches[k] = 0
+        yield
+        got = {**CK.launches, **SK.launches, **LK.launches, **SPK.launches}
+        log(f"launches on {label}: {json.dumps(got)}")
+        for k in main_counts:
+            main_counts[k] += got[k]
+        missing = [k for k in launched if got[k] == 0]
+        extra = [k for k in not_launched if got[k] != 0]
+        if missing or extra:
+            raise AssertionError(f"{label}: kernels not launched {missing}, "
+                                 f"launched though they should not be {extra}")
 
     def rig(W, H, alpha):
         s = W / 3840.0
@@ -324,28 +430,46 @@ def main() -> int:
         H, W, shift = 720, 1280, 30
         left, right = textured_pair(rng, H, W, shift)
         l, r = torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev)
-        cfg = DP.SGBMConfig(num_disparities=128, num_directions=8, speckle_backend="exact")
-        before = counts()
-        walls = []
-        for _ in range(4):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            disp, valid = DP.sgbm_disparity(l, r, cfg)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
+        # Config 2 as the reference runs it: the default speckle "propagate".
+        cfg = DP.SGBMConfig(num_disparities=128, num_directions=8)
+        host = cfg.with_(speckle_backend="exact")
+
+        def timed(c, n):
+            walls = []
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = DP.sgbm_disparity(l, r, c)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            return out, walls
+
+        with main_path("720p config 2 (device speckle)", dense + speckle):
+            (disp, valid), walls = timed(cfg, 4)
+            profile_idle(torch, "720p sgbm_disparity x128 8-dir (device speckle)",
+                         lambda: DP.sgbm_disparity(l, r, cfg))
         warm = statistics.median(walls[1:])
         share, vshare = within_shift(torch.where(valid, disp, torch.zeros_like(disp)), 128, shift)
-        log(f"sgbm_disparity 720p x128 8-dir: s/pair first {walls[0]}, warm {walls[1:]} "
-            f"(warm median {warm} s, {H * W / 1e6 / warm} MPix/s); valid {vshare:.4f}; "
-            f"within 1 px of {shift}: {share:.4f}")
+        log(f"sgbm_disparity 720p x128 8-dir (device speckle): s/pair first {walls[0]}, "
+            f"warm {walls[1:]} (warm median {warm} s, {H * W / 1e6 / warm} MPix/s); "
+            f"valid {vshare:.4f}; within 1 px of {shift}: {share:.4f}")
         if share < 0.95 or vshare < 0.5:
             raise AssertionError("720p disparity does not recover the known shift")
-        profile_idle(torch, "720p sgbm_disparity x128 8-dir (host speckle)",
-                     lambda: DP.sgbm_disparity(l, r, cfg))
-        profile_idle(torch, "720p sgbm_disparity x128 8-dir (no speckle)",
-                     lambda: DP.sgbm_disparity(l, r, cfg.with_(speckle_window_size=0)))
+        with main_path("720p config 2 (host speckle)", dense, speckle):
+            (disp_h, valid_h), walls_h = timed(host, 4)
+            profile_idle(torch, "720p sgbm_disparity x128 8-dir (host speckle)",
+                         lambda: DP.sgbm_disparity(l, r, host))
+        log(f"sgbm_disparity 720p x128 8-dir (host speckle): s/pair first {walls_h[0]}, "
+            f"warm {walls_h[1:]} (warm median {statistics.median(walls_h[1:])} s)")
+        if not (torch.equal(disp, disp_h) and torch.equal(valid, valid_h)):
+            raise AssertionError("720p: the device speckle's mask differs from the host filter's")
+        log("720p: device and host speckle give equal masks")
+        with main_path("720p config 2 (no speckle)", dense, speckle):
+            profile_idle(torch, "720p sgbm_disparity x128 8-dir (no speckle)",
+                         lambda: DP.sgbm_disparity(l, r, cfg.with_(speckle_window_size=0)))
         Kt, res = rig(W, H, 0.0)
-        with tempfile.TemporaryDirectory() as td:
+        with tempfile.TemporaryDirectory() as td, \
+                main_path("720p CLI chain (host speckle)", dense, speckle):
             out = os.path.join(td, "cloud.ply")
             t0 = time.perf_counter()
             dmap = stages.disparity(left, right, ndisp=128, device="cuda")
@@ -359,14 +483,9 @@ def main() -> int:
             f"within 1 px of {shift}: {share:.4f}")
         if not (n == n_file == n_mask) or n < 0.5 * H * (W - 128) or share < 0.95:
             raise AssertionError("720p point cloud is wrong")
-        after = counts()
-        missing = [k for k in after if after[k] <= before[k]]
-        if missing:
-            raise AssertionError(f"kernels not launched by the 720p path: {missing}")
 
     # ---------------------------------------------------------------- 5. 4K
-    main_counts = {}
-    frame = {}  # phase 5's rectified pair and disparity map, for phase 6
+    frame = {}  # phase 5's rectified pair, disparity map and device-chain maps, for phase 6
     H4, W4, D4 = 2160, 3840, 256
 
     @phase("5 main path 4K")
@@ -376,7 +495,6 @@ def main() -> int:
         left, right = textured_pair(rng, H4, W4, shift)
         Kt, res = rig(W4, H4, 0.0)
         expect = shift * float(res.P1[0, 0] / Kt[0, 0])
-        before = counts()
 
         def run(out_path, stamps=None):
             def mark(name):
@@ -401,7 +519,8 @@ def main() -> int:
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        with tempfile.TemporaryDirectory() as td:
+        with tempfile.TemporaryDirectory() as td, \
+                main_path("4K pair -> PLY (host speckle)", dense, speckle):
             out = os.path.join(td, "cloud_4k.ply")
             walls = []
             for _ in range(4):
@@ -415,7 +534,44 @@ def main() -> int:
             run(out, stamps)
             profile_idle(torch, "4K pair -> PLY x256 5-dir", lambda: run(out))
         peak = torch.cuda.max_memory_allocated()
-        main_counts.update(counts())
+
+        # Config 3's device chain (benchmarks.py config 3): from the raw pair
+        # on the card to one scalar, the speckle filter on the device.
+        cfg3 = DP.SGBMConfig(num_disparities=D4, num_directions=5)
+        core = cfg3.with_(speckle_window_size=0)
+        Q = res.Q.to(device=dev, dtype=torch.float32)
+        l_dev, r_dev = torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev)
+
+        def chain():
+            rl = RC.rectify_remap(l_dev, Kt, None, res.R1, res.P1)
+            rr = RC.rectify_remap(r_dev, Kt, None, res.R2, res.P2)
+            d, v = DP.sgbm_disparity_auto(rl, rr, core)
+            keep = DP._speckle(d, v, cfg3)
+            pts = G.reproject_image_to_3d(d, Q)
+            frame.update(d3=d, v3=v, keep3=keep)
+            return torch.where(keep[..., None], pts, torch.zeros_like(pts)).sum()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls3, total = [], 0.0
+        with main_path("4K config 3 device chain (device speckle)", dense + speckle):
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                total = float(chain().item())
+                walls3.append(time.perf_counter() - t0)
+            peak3 = torch.cuda.max_memory_allocated()
+            profile_idle(torch, "4K device chain x256 5-dir (config 3, device speckle)", chain)
+        warm3 = statistics.median(walls3[1:])
+        keep3 = frame["keep3"]
+        share3, vshare3 = within_shift(torch.where(keep3, frame["d3"], torch.zeros_like(frame["d3"])),
+                                       D4, expect)
+        log(f"4K device chain {W4}x{H4} x{D4} 5-dir: s/pair first (cold) {walls3[0]}, "
+            f"warm {walls3[1:]} (warm median {warm3} s, {H4 * W4 / 1e6 / warm3} MPix/s); "
+            f"masked point sum {total}; peak {peak3 / 2**30:.3f} GiB; kept non-margin share "
+            f"{vshare3:.4f}, within 1 px of {expect:.3f}: {share3:.4f}")
+        if not np.isfinite(total) or share3 < 0.95 or vshare3 < 0.5:
+            raise AssertionError("4K device chain: non-finite sum or wrong disparities")
         steps = {b[0]: b[1] - a[1] for a, b in zip(stamps, stamps[1:])}
         warm = statistics.median(walls[1:])
         dmap = frame["dmap"]
@@ -431,11 +587,6 @@ def main() -> int:
             raise AssertionError("4K disparity does not recover the known shift")
         if n != n_file or n < 0.5 * H4 * (W4 - D4) or not bool(torch.isfinite(pts[dmap > 0]).all()):
             raise AssertionError("4K point cloud is wrong")
-        missing = [k for k in main_counts if main_counts[k] <= before[k]]
-        if missing:
-            raise AssertionError(f"kernels not launched by the 4K path: {missing}")
-        log("launch counts in the 4K runs: "
-            + json.dumps({k: main_counts[k] - before[k] for k in main_counts}))
 
     # ------------------------------------------------------ 6. 4K vs plain
     @phase("6 4K kernels vs plain")
@@ -511,6 +662,31 @@ def main() -> int:
             "host speckle (wall, copies included)": speckle_ms,
         }
         log("4K disparity breakdown (ms): " + json.dumps(kernel_ms))
+
+        # Speckle at 4K: labels vs the plain flood's fixpoint, keep vs the host
+        # filter, on the device chain's own maps (its margin sliced off, its
+        # speckle_range), a speckled random map and a serpentine of 40 turns.
+        d3, v3 = frame["d3"], frame["v3"]
+        T, rng_diff = cfg.speckle_window_size, float(cfg.speckle_range)
+        keep_host = DP.filter_speckles_host(d3, v3, T, rng_diff)
+        if not (torch.equal(frame["keep3"], keep_host) and torch.equal(DP._speckle(d3, v3, cfg), keep_host)):
+            raise AssertionError("4K frame: the device speckle's mask differs from the host filter's")
+        rng = np.random.default_rng(SEED + 3)
+        Wc = W4 - md - D
+        maps = [("4K frame", d3[:, md + D:].contiguous(), v3[:, md + D:].contiguous(), rng_diff)]
+        for label, (dn, vn) in (("4K speckled", speckled_map(rng, H, Wc, 0.3, 4)),
+                                ("4K serpentine", serpentine_map(rng, H, Wc, 40))):
+            maps.append((label, torch.from_numpy(dn).to(dev), torch.from_numpy(vn).to(dev),
+                         SPECKLE_DIFF))
+        speckle_ms = {}
+        for label, dm, vm, diff in maps:
+            times = check_speckle(label, dm, vm, (20, T), reps=3, max_diff=diff)
+            keep = SPK.speckle_filter(dm, vm, T, diff)
+            if not torch.equal(keep, DP.filter_speckles_host(dm, vm, T, diff)):
+                raise AssertionError(f"{label}: the speckle kernels' mask differs from the host filter's")
+            speckle_ms[label] = dict(zip(("labels", "labels_plain", "keep", "keep_plain"), times))
+        log("[4K] speckle keep masks equal the host filter's on all three maps")
+        log("4K speckle times (ms): " + json.dumps(speckle_ms))
 
     if failures:
         log(f"FAILED phases: {failures}")

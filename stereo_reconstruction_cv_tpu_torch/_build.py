@@ -6,9 +6,10 @@ Two shared libraries with plain C interfaces, loaded with ctypes:
 - the host speckle filter: ``g++`` over the reference's ``native/speckle.cc``
   alone (no libjpeg, unlike the reference's ``libstereo_native.so``).
 
-Each library is written to ``build/`` at the repository root under a name
-that carries a digest of its sources and flags, so an edited source is never
-served by a stale library. A build that fails raises: there is no fallback.
+Both are built the same way: one compiler process per source, all started
+together, then one link. Each library is written to ``build/`` at the
+repository root under a name that carries a digest of its sources and flags,
+so an edited source is never served by a stale library. A build that fails raises: there is no fallback.
 Nothing is built or loaded at import time.
 """
 
@@ -32,10 +33,10 @@ SPECKLE_SOURCE = ROOT / "native" / "speckle.cc"
 # never add --use_fast_math here.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+GXX_FLAGS = ("-O3", "-fPIC", "-std=c++17")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -49,26 +50,46 @@ def _digest(sources, flags) -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds, log: list, name: str) -> None:
+    """Start every command at once and wait for all; append their messages
+    to `log`; raise on the first that failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)) for cmd in cmds]
+    failed = []
+    for cmd, p in procs:
+        text = p.communicate()[0]
+        log.append(f"$ {' '.join(cmd)}\n{text}")
+        if p.returncode != 0:
+            failed.append(f"building {name} failed ({' '.join(cmd)}):\n{text}")
+    if failed:
+        raise RuntimeError(failed[0])
+
+
 def _compile(cmd_prefix, sources, flags, name: str) -> Path:
     """Compile `sources` into build/<name>-<digest>.so unless it exists.
 
-    The output goes to a per-process temporary name and is renamed into
-    place, so concurrent first uses (test workers) never load a partial
-    file. The compiler's messages are kept beside the library."""
+    Each source is compiled to an object by its own process, all started
+    together, and the objects are then linked with -shared. The output goes
+    to a per-process temporary name and is renamed into place, so concurrent
+    first uses (test workers) never load a partial file. The compilers'
+    messages are kept beside the library."""
     out = BUILD_DIR / f"{name}-{_digest(sources, flags)}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [*cmd_prefix, *flags, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    log: list = []
+    try:
+        _run([[*cmd_prefix, *flags, "-c", "-o", str(o), str(src)]
+              for o, src in zip(objs, sources)], log, name)
+        _run([[*cmd_prefix, "-shared", "-o", str(tmp), *map(str, objs)]], log, name)
+        os.replace(tmp, out)
+    finally:
+        out.with_suffix(".log").write_text("".join(log))
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"building {name} failed ({' '.join(cmd)}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
+        for o in objs:
+            o.unlink(missing_ok=True)
     return out
 
 
@@ -117,8 +138,10 @@ def _declare_kernels(lib: ctypes.CDLL) -> None:
     lib.srcv_sgm_path_sweep.argtypes = [P, P, I, I, I, I, I, I, I, I, P]
     lib.srcv_sgm_sweep_wta.argtypes = [P] * 7 + [I] * 11 + [P]
     lib.srcv_lr_check.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
-    for fn in (lib.srcv_cost_volume, lib.srcv_sgm_path_sweep,
-               lib.srcv_sgm_sweep_wta, lib.srcv_lr_check):
+    lib.srcv_speckle_labels.argtypes = [P, P, P, I, I, ctypes.c_float, P]
+    lib.srcv_speckle_keep.argtypes = [P, P, P, P, I, I, P]
+    for fn in (lib.srcv_cost_volume, lib.srcv_sgm_path_sweep, lib.srcv_sgm_sweep_wta,
+               lib.srcv_lr_check, lib.srcv_speckle_labels, lib.srcv_speckle_keep):
         fn.restype = I
     lib.srcv_error_string.argtypes = [I]
     lib.srcv_error_string.restype = ctypes.c_char_p

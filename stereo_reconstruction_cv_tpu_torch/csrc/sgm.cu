@@ -4,7 +4,10 @@
 // Replaces the TPU kernels of stereo_reconstruction_cv_tpu/ops/pallas/sgm_pallas.py
 // that sgm_wta_pallas chains: _sweep_vertical / _sweep_vertical_tiled
 // (U, UL, UR and their reverses), _sweep_hT (the forward horizontal path) and
-// _sweep_hT_wta (the reverse horizontal path with _wta_cell fused).
+// _sweep_hT_wta (the reverse horizontal path with _wta_cell fused); and those
+// of sgm_aggregate_pallas (the full S volume), whose horizontal paths
+// _sweep_horizontal runs: ops/cuda/sgm.py:sgm_aggregate_cuda sweeps every
+// direction with srcv_sgm_path_sweep.
 //
 // srcv_sgm_path_sweep runs ONE direction r = (dx, dy) over the cropped cost
 // volume C (H, W, D) int16 and writes, or adds onto, a u16 volume of that

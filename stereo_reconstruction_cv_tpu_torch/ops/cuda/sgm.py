@@ -3,18 +3,19 @@
 Plain versions of ``stereo_reconstruction_cv_tpu/ops/disparity.py``
 (``_sgm_step``, ``_scan_dir`` with the exact scan only, ``sgm_aggregate``,
 ``wta_disparity``) and the wrappers of ``csrc/sgm.cu``, whose two kernels
-replace the TPU kernels that ``ops/pallas/sgm_pallas.py:sgm_wta_pallas``
-chains:
+replace the TPU kernels of ``ops/pallas/sgm_pallas.py``:
 
 - ``sgm_path_sweep`` (``_sweep_vertical``, ``_sweep_vertical_tiled``,
-  ``_sweep_hT``): one path direction, writing or adding its (L - C) deltas
-  onto a u16 volume;
+  ``_sweep_hT``, ``_sweep_horizontal``): one path direction, writing or
+  adding its (L - C) deltas onto a u16 volume;
 - ``sgm_sweep_wta`` (``_sweep_hT_wta``): the reverse horizontal path with WTA
   fused, so the aggregated volume S never reaches device memory.
 
-``sgm_wta`` dispatches on the device of the cost volume: CPU takes the plain
-version, CUDA launches the kernels (or raises). Delta volumes hold u16 bits in
-int16-typed tensors; ``u16`` widens them.
+``sgm_wta`` (``sgm_wta_pallas``) and ``sgm_aggregate``
+(``sgm_aggregate_pallas``, the full S volume) dispatch on the device of the
+cost volume: CPU takes the plain version, CUDA launches the kernels (or
+raises). Delta volumes hold u16 bits in int16-typed tensors; ``u16`` widens
+them.
 """
 
 from __future__ import annotations
@@ -81,8 +82,8 @@ def _scan_dir(C: torch.Tensor, dx: int, dy: int, p1: int, p2: int) -> torch.Tens
     return out if dy > 0 else out.flip(0)
 
 
-def sgm_aggregate(C: torch.Tensor, p1: int, p2: int,
-                  directions: Sequence[Tuple[int, int]] = DIRS_8) -> torch.Tensor:
+def sgm_aggregate_plain(C: torch.Tensor, p1: int, p2: int,
+                        directions: Sequence[Tuple[int, int]] = DIRS_8) -> torch.Tensor:
     """Sum of per-direction aggregations. (H, W, D) -> (H, W, D) int32."""
     C = C.to(torch.int32)
     S = torch.zeros_like(C)
@@ -134,7 +135,7 @@ def sweep_wta_plain(C, partial, nd: int, p1: int, p2: int, uniqueness_ratio: int
 def sgm_wta_plain(C, p1: int, p2: int, num_directions: int = 8,
                   uniqueness_ratio: int = 10, min_disp: int = 0):
     """wta_maps(sgm_aggregate(C)) -> (disp, valid, best, minS)."""
-    S = sgm_aggregate(C, p1, p2, directions_for(num_directions))
+    S = sgm_aggregate_plain(C, p1, p2, directions_for(num_directions))
     return wta_maps(S, min_disp, uniqueness_ratio)
 
 
@@ -167,6 +168,14 @@ def _pow2_at_least(n: int) -> int:
 def check_sgm_bounds(p1: int, p2: int, num_disp: int, num_directions: int) -> None:
     """Raise where a config would overflow the kernels' integer widths."""
     directions_for(num_directions)
+    check_delta_bounds(p1, p2, num_disp)
+    max_s = num_directions * (0x7FFF + p2)
+    if (max_s + 1) * _pow2_at_least(num_disp) > 0x7FFFFFFF:
+        raise ValueError("the packed WTA key S*Dp + d would overflow int32")
+
+
+def check_delta_bounds(p1: int, p2: int, num_disp: int) -> None:
+    """Raise where the path sweeps' u16 delta volumes would overflow."""
     if p1 < 0 or p2 < 0:
         raise ValueError(f"P1={p1} and P2={p2} must be >= 0")
     if 4 * p2 > 0xFFFF:
@@ -176,9 +185,6 @@ def check_sgm_bounds(p1: int, p2: int, num_disp: int, num_directions: int) -> No
         )
     if not 1 <= num_disp <= 512:
         raise ValueError(f"num_disp={num_disp} outside [1, 512]")
-    max_s = num_directions * (0x7FFF + p2)
-    if (max_s + 1) * _pow2_at_least(num_disp) > 0x7FFFFFFF:
-        raise ValueError("the packed WTA key S*Dp + d would overflow int32")
 
 
 def u16(vol: torch.Tensor) -> torch.Tensor:
@@ -210,18 +216,49 @@ def path_sweep_cuda(C: torch.Tensor, acc: torch.Tensor, dx: int, dy: int,
     launches["sgm_path_sweep"] += 1
 
 
+def _sweep_group(C: torch.Tensor, acc: torch.Tensor, group, p1: int, p2: int) -> None:
+    """Kernels: acc = the u16 sum of the deltas of `group` (at most 4 directions)."""
+    for i, (dx, dy) in enumerate(group):
+        path_sweep_cuda(C, acc, dx, dy, p1, p2, accumulate=i > 0)
+
+
 def path_deltas_cuda(C: torch.Tensor, num_directions: int, p1: int, p2: int):
     """Kernels: every direction but FUSED_DIR, swept group by group
     (delta_groups) into one or two u16 delta volumes."""
     vols = []
     for group in delta_groups(num_directions):
-        if not group:
-            continue
-        acc = torch.empty_like(C)
-        for i, (dx, dy) in enumerate(group):
-            path_sweep_cuda(C, acc, dx, dy, p1, p2, accumulate=i > 0)
-        vols.append(acc)
+        if group:
+            vols.append(torch.empty_like(C))
+            _sweep_group(C, vols[-1], group, p1, p2)
     return vols
+
+
+def sgm_aggregate_cuda(C: torch.Tensor, p1: int, p2: int,
+                       directions: Sequence[Tuple[int, int]] = DIRS_8) -> torch.Tensor:
+    """Kernels: S = nd*C + the deltas of every direction, FUSED_DIR included,
+    swept in u16 groups of at most 4 -> (H, W, D) int32."""
+    _require_cuda_cost(C)
+    directions = list(directions)
+    S = len(directions) * C.to(torch.int32)
+    acc = torch.empty_like(C)
+    for i in range(0, len(directions), 4):
+        _sweep_group(C, acc, directions[i:i + 4], p1, p2)
+        S += u16(acc)
+    return S
+
+
+def sgm_aggregate(C: torch.Tensor, p1: int, p2: int,
+                  directions: Sequence[Tuple[int, int]] = DIRS_8) -> torch.Tensor:
+    """The aggregated volume S (H, W, D) int32: kernels on a CUDA tensor
+    (int16, contiguous), plain on the CPU. Both take the same inputs: unit
+    path steps (members of DIRS_8) and P1, P2, D within the u16 bounds."""
+    check_delta_bounds(p1, p2, C.shape[2])
+    directions = list(directions)
+    if not set(directions) <= set(DIRS_8):
+        raise ValueError(f"directions must be unit steps (members of DIRS_8), got {directions}")
+    if C.device.type == "cpu":
+        return sgm_aggregate_plain(C, p1, p2, directions)
+    return sgm_aggregate_cuda(C, p1, p2, directions)
 
 
 def sweep_wta_cuda(C: torch.Tensor, vols: Sequence[torch.Tensor],

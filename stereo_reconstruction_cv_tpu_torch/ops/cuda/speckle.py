@@ -1,0 +1,195 @@
+"""Speckle filter on the device: plain PyTorch versions and the CUDA kernels.
+
+Plain versions of ``stereo_reconstruction_cv_tpu/ops/disparity.py``
+(``_seg_min_flood``, the XLA branch of ``speckle_filter`` with its
+``max_rounds`` loop and bincount size test) and the wrappers of
+``csrc/speckle.cu``, whose two kernels replace:
+
+- ``speckle_labels``: the TPU flood kernels of
+  ``ops/pallas/speckle_pallas.py`` (``flood_round_flagged``,
+  ``flood_round_pallas``) iterated to their fixpoint. The kernel computes the
+  fixpoint directly, by union-find, in three launches and no host sync;
+- ``speckle_keep``: ``disparity.py:_component_keep_sort`` (the sorted size
+  test the TPU needed for want of fast scatters), as an atomic histogram.
+
+The label map is what the flood converges to: every valid pixel gets the
+smallest linear index of its 4-connected component (neighbours joined where
+both are valid and |d(p) - d(q)| <= max_diff in f32), every invalid pixel the
+sink label H*W. Components of at most ``max_size`` pixels are dropped.
+
+``speckle_filter`` dispatches on the device of its inputs: CPU tensors take
+the plain version, CUDA tensors launch the kernels (or raise). The plain
+flood stops after ``max_rounds`` rounds, as the reference's does; the kernels
+are always exact (cv2.filterSpeckles), so the two differ only on maps whose
+flood has not converged by then.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from stereo_reconstruction_cv_tpu_torch import _build
+
+# Kernel launches by this module's wrappers (read and reset by chip_smoke.py).
+launches = {"speckle_labels": 0, "speckle_keep": 0}
+
+MAX_ROUNDS = 64
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def connectivity(disp: torch.Tensor, valid: torch.Tensor, max_diff: float):
+    """(ch, cv) bool (H, W): pixel joined to its left / upper neighbour
+    (first column / row False)."""
+    disp = disp.to(torch.float32)
+    ch = torch.zeros_like(valid)
+    cv = torch.zeros_like(valid)
+    ch[:, 1:] = ((disp[:, 1:] - disp[:, :-1]).abs() <= max_diff) & valid[:, 1:] & valid[:, :-1]
+    cv[1:, :] = ((disp[1:, :] - disp[:-1, :]).abs() <= max_diff) & valid[1:, :] & valid[:-1, :]
+    return ch, cv
+
+
+def initial_labels(valid: torch.Tensor) -> torch.Tensor:
+    """Linear index for valid pixels, the sink H*W for invalid ones (int32)."""
+    H, W = valid.shape
+    lab = torch.arange(H * W, dtype=torch.int32, device=valid.device).reshape(H, W)
+    return torch.where(valid, lab, torch.full_like(lab, H * W))
+
+
+def _shift(x: torch.Tensor, s: int, axis: int, before: bool, fill) -> torch.Tensor:
+    """x[i - s] (before) or x[i + s] along `axis`, `fill` where it leaves."""
+    n = x.shape[axis]
+    out = torch.full_like(x, fill)
+    if s < n:
+        if before:
+            out.narrow(axis, s, n - s).copy_(x.narrow(axis, 0, n - s))
+        else:
+            out.narrow(axis, 0, n - s).copy_(x.narrow(axis, s, n - s))
+    return out
+
+
+def seg_min_flood(lab: torch.Tensor, conn: torch.Tensor, axis: int, big: int) -> torch.Tensor:
+    """Two-sided min-flood of labels along `axis` within connectivity segments,
+    by log-doubling (the reference's _seg_min_flood, level for level).
+    conn[i]: element i joined to its predecessor along the axis."""
+    n = lab.shape[axis]
+    bigv = torch.full_like(lab, big)
+    C = conn
+    s = 1
+    while s < n:
+        lab = torch.minimum(lab, torch.where(C, _shift(lab, s, axis, True, 0), bigv))
+        C_next = _shift(C, s, axis, False, False)  # span (i .. i+s) connected
+        lab = torch.minimum(lab, torch.where(C_next, _shift(lab, s, axis, False, 0), bigv))
+        C = C & _shift(C, s, axis, True, False)
+        s *= 2
+    return lab
+
+
+def flood_round(lab: torch.Tensor, ch: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
+    """One round: row flood, then column flood."""
+    big = lab.numel()
+    return seg_min_flood(seg_min_flood(lab, ch, 1, big), cv, 0, big)
+
+
+def speckle_labels_plain(disp: torch.Tensor, valid: torch.Tensor, max_diff: float,
+                         max_rounds: int = MAX_ROUNDS):
+    """Flood rounds until one changes nothing or `max_rounds` ran, as the
+    reference's while_loop -> (labels int32, converged bool)."""
+    ch, cv = connectivity(disp, valid, max_diff)
+    lab = initial_labels(valid)
+    for _ in range(max_rounds):
+        new = flood_round(lab, ch, cv)
+        changed = bool((new != lab).any())
+        lab = new
+        if not changed:
+            return lab, True
+    return lab, False
+
+
+def speckle_keep_plain(labels: torch.Tensor, valid: torch.Tensor, max_size: int) -> torch.Tensor:
+    """valid & (size of the pixel's component > max_size), bincount form."""
+    sizes = torch.bincount(labels.reshape(-1).to(torch.int64), minlength=labels.numel() + 1)
+    return valid & (sizes[labels.to(torch.int64)] > max_size)
+
+
+def speckle_filter_plain(disp: torch.Tensor, valid: torch.Tensor, max_size: int,
+                         max_diff: float) -> torch.Tensor:
+    """The reference's speckle_filter (XLA branch): keep mask (H, W) bool."""
+    labels, _ = speckle_labels_plain(disp, valid, max_diff)
+    return speckle_keep_plain(labels, valid, max_size)
+
+
+# ---------------------------------------------------------------------------
+# Kernels
+# ---------------------------------------------------------------------------
+
+def _check_maps(disp: torch.Tensor, valid: torch.Tensor) -> None:
+    if disp.dim() != 2 or valid.shape != disp.shape:
+        raise ValueError(f"disp {tuple(disp.shape)} and valid {tuple(valid.shape)} "
+                         "must share one (H, W) shape")
+    if valid.dtype != torch.bool:
+        raise ValueError(f"valid must be a bool tensor, got {valid.dtype}")
+    if disp.numel() >= 2**31 - 1:
+        raise ValueError(f"{disp.numel()} pixels: int32 labels hold at most 2^31 - 2")
+
+
+def _require_cuda(*ts: torch.Tensor) -> torch.device:
+    dev = ts[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in ts):
+        raise ValueError("speckle kernels: inputs must all lie on one CUDA device")
+    return dev
+
+
+def speckle_labels_cuda(disp: torch.Tensor, valid: torch.Tensor, max_diff: float) -> torch.Tensor:
+    """Kernel: the flood's fixpoint label map (H, W) int32, exactly."""
+    _check_maps(disp, valid)
+    dev = _require_cuda(disp, valid)
+    H, W = disp.shape
+    disp = disp.to(torch.float32).contiguous()
+    valid = valid.contiguous()
+    labels = torch.empty((H, W), dtype=torch.int32, device=dev)
+    lib = _build.kernels_library()
+    with torch.cuda.device(dev):
+        err = lib.srcv_speckle_labels(
+            disp.data_ptr(), valid.data_ptr(), labels.data_ptr(), H, W, float(max_diff),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, err, "speckle_labels")
+    launches["speckle_labels"] += 1
+    return labels
+
+
+def speckle_keep_cuda(labels: torch.Tensor, valid: torch.Tensor, max_size: int) -> torch.Tensor:
+    """Kernel: valid & (component size > max_size) from a fixpoint label map."""
+    if labels.dtype != torch.int32:
+        raise ValueError(f"labels must be int32, got {labels.dtype}")
+    _check_maps(labels, valid)
+    dev = _require_cuda(labels, valid)
+    H, W = labels.shape
+    labels = labels.contiguous()
+    valid = valid.contiguous()
+    counts = torch.empty(H * W, dtype=torch.int32, device=dev)
+    keep = torch.empty((H, W), dtype=torch.bool, device=dev)
+    lib = _build.kernels_library()
+    with torch.cuda.device(dev):
+        err = lib.srcv_speckle_keep(
+            labels.data_ptr(), valid.data_ptr(), counts.data_ptr(), keep.data_ptr(),
+            H * W, int(max_size), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, err, "speckle_keep")
+    launches["speckle_keep"] += 1
+    return keep
+
+
+def speckle_filter(disp: torch.Tensor, valid: torch.Tensor, max_size: int = 100,
+                   max_diff: float = 32.0) -> torch.Tensor:
+    """Keep mask (H, W) bool: the kernels on CUDA tensors, plain on the CPU."""
+    _check_maps(disp, valid)
+    if max_size < 0:
+        raise ValueError(f"max_size={max_size} must be >= 0")
+    if disp.device.type == "cpu" and valid.device.type == "cpu":
+        return speckle_filter_plain(disp, valid, max_size, max_diff)
+    labels = speckle_labels_cuda(disp, valid, max_diff)
+    return speckle_keep_cuda(labels, valid, max_size)

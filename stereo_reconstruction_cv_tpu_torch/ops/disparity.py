@@ -8,7 +8,9 @@ parity, the reference's exact parameter set in ``config.SGBMConfig``):
   semi-global paths + WTA             -> cuda/sgm.py   (kernels sgm_path_sweep,
                                                         sgm_sweep_wta)
   left-right consistency              -> cuda/lr.py    (kernel lr_check)
-  speckle filter                      -> host union-find (native.py)
+  speckle filter, "propagate"         -> cuda/speckle.py (kernels speckle_labels,
+                                                        speckle_keep)
+  speckle filter, "exact"             -> host union-find (native.py)
 
 Every function runs on the device of the tensors it is given: CUDA tensors go
 through the kernels, CPU tensors through the plain versions beside them.
@@ -29,9 +31,12 @@ from stereo_reconstruction_cv_tpu_torch.ops.cuda.cost import (
 )
 from stereo_reconstruction_cv_tpu_torch.ops.cuda.lr import lr_check_maps
 from stereo_reconstruction_cv_tpu_torch.ops.cuda.sgm import check_sgm_bounds, sgm_wta
+from stereo_reconstruction_cv_tpu_torch.ops.cuda.speckle import speckle_filter
 
 
 def _validate(H: int, W: int, cfg: SGBMConfig) -> None:
+    if cfg.speckle_backend not in ("propagate", "exact"):
+        raise ValueError(f"speckle_backend={cfg.speckle_backend!r}: 'propagate' or 'exact'")
     if cfg.scan_chunk is not None:
         raise ValueError(
             f"scan_chunk={cfg.scan_chunk}: the port's path scans are exact; "
@@ -101,14 +106,17 @@ def filter_speckles_host(disp: torch.Tensor, valid: torch.Tensor,
 
 
 def _speckle(disp: torch.Tensor, valid: torch.Tensor, cfg: SGBMConfig) -> torch.Tensor:
+    """Keep mask of cfg's speckle backend: "exact" on the host, "propagate"
+    on the inputs' device. The left margin x < min_disp + num_disp is invalid
+    by construction, so "propagate" labels only the columns right of it and
+    pads the margin back as not kept."""
     if cfg.speckle_backend == "exact":
         return filter_speckles_host(disp, valid, cfg.speckle_window_size,
                                     float(cfg.speckle_range))
-    raise NotImplementedError(
-        f"speckle_backend={cfg.speckle_backend!r} needs the device flood-fill "
-        "kernel (ROADMAP.md queue A item 5, speckle_pallas.flood_round_flagged), "
-        "not ported yet; use speckle_backend='exact'"
-    )
+    x0 = cfg.min_disparity + cfg.num_disparities
+    keep = speckle_filter(disp[:, x0:], valid[:, x0:], cfg.speckle_window_size,
+                          float(cfg.speckle_range))
+    return torch.nn.functional.pad(keep, (x0, 0), value=False)
 
 
 def frame_bytes(H: int, W: int, cfg: SGBMConfig) -> int:

@@ -14,9 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+from stereo_reconstruction_cv_tpu_torch import native
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import cost as CK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import lr as LK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import sgm as SK
+from stereo_reconstruction_cv_tpu_torch.ops.cuda import speckle as SPK
 
 pytestmark = pytest.mark.gpu
 
@@ -84,3 +86,59 @@ def test_lr_kernel_ties_and_margins(dev):
     for max_diff in (0, 1, 3):
         got = LK.lr_check_maps(best, minS, disp, D, md, max_diff)
         assert torch.equal(got, LK.lr_check_maps_plain(best, minS, disp, D, md, max_diff))
+
+
+@pytest.mark.parametrize("nd", [5, 8])
+@pytest.mark.parametrize("H,W,D", [(19, 37, 16), (9, 41, 100)])
+def test_sgm_aggregate_kernel_equals_plain(dev, nd, H, W, D):
+    rng = np.random.default_rng(H + nd)
+    C = torch.from_numpy(rng.integers(0, 20000, (H, W, D), dtype=np.int16)).to(dev)
+    dirs = SK.directions_for(nd)
+    S = SK.sgm_aggregate(C, P1, P2, dirs)
+    torch.cuda.synchronize()
+    assert S.dtype == torch.int32 and torch.equal(S, SK.sgm_aggregate_plain(C, P1, P2, dirs))
+    got = SK.wta_maps(S, 2, 10)
+    for a, b in zip(got, SK.sgm_wta(C, P1, P2, nd, 10, 2)):
+        assert torch.equal(a, b)
+
+
+def _speckle_case(kind, H, W, seed=0):
+    rng = np.random.default_rng(seed)
+    disp = (rng.random((H, W)) * 60).astype(np.float32)
+    if kind == "random":
+        valid = rng.random((H, W)) >= 0.4
+    elif kind == "all valid":
+        valid = np.ones((H, W), bool)
+        disp = np.broadcast_to(np.arange(W) // 16 * 20.0, (H, W)).astype(np.float32)  # bands
+    elif kind == "all invalid":
+        valid = np.zeros((H, W), bool)
+    elif kind == "checkerboard":
+        valid = (np.add.outer(np.arange(H), np.arange(W)) % 2) == 0
+    elif kind == "serpentine":  # one-pixel stripes joined at alternate ends
+        valid = np.zeros((H, W), bool)
+        valid[::2, 1:W - 1] = True
+        for k, y in enumerate(range(1, H - 1, 2)):
+            valid[y, W - 2 if k % 2 == 0 else 1] = True
+        disp[:] = 7.0
+    else:
+        raise ValueError(kind)
+    return disp, valid
+
+
+@pytest.mark.parametrize("kind,H,W,T", [
+    ("random", 1, 300, 2), ("random", 300, 1, 2), ("random", 37, 70, 0),
+    ("random", 65, 33, 5), ("all valid", 40, 97, 100), ("all invalid", 33, 65, 0),
+    ("checkerboard", 35, 66, 0), ("serpentine", 63, 50, 100), ("random", 200, 321, 3),
+])
+def test_speckle_kernels_equal_plain(dev, kind, H, W, T):
+    disp_np, valid_np = _speckle_case(kind, H, W)
+    disp = torch.from_numpy(disp_np).to(dev)
+    valid = torch.from_numpy(valid_np).to(dev)
+    labels = SPK.speckle_labels_cuda(disp, valid, 5.0)
+    ref, converged = SPK.speckle_labels_plain(disp, valid, 5.0, max_rounds=4096)
+    torch.cuda.synchronize()
+    assert converged and torch.equal(labels, ref)
+    keep = SPK.speckle_filter(disp, valid, T, 5.0)
+    assert torch.equal(keep, SPK.speckle_keep_plain(ref, valid, T))
+    assert torch.equal(SPK.speckle_keep_cuda(ref, valid, T), keep)
+    assert np.array_equal(keep.cpu().numpy(), native.filter_speckles(disp_np, valid_np, T, 5.0))

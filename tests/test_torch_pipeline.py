@@ -28,6 +28,7 @@ from stereo_reconstruction_cv_tpu_torch.ops import rectify as RC
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import cost as CK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import lr as LK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import sgm as SK
+from stereo_reconstruction_cv_tpu_torch.ops.cuda import speckle as SPK
 from stereo_reconstruction_cv_tpu_torch.pipeline import stages
 
 K_4K = np.array([[2253.71, 0.0, 1929.69], [0.0, 2244.72, 1057.63], [0.0, 0.0, 1.0]])
@@ -52,13 +53,19 @@ def _rig(w=W, h=H):
     return K, rr
 
 
-@pytest.mark.parametrize("ndirs,min_disp,speckle", [(5, 0, 0), (8, 3, 0), (5, 0, 100)])
-def test_sgbm_disparity_matches_reference(ndirs, min_disp, speckle):
+@pytest.mark.parametrize("ndirs,min_disp,speckle,speckle_backend", [
+    pytest.param(5, 0, 0, "exact", id="5-0-0"),
+    pytest.param(8, 3, 0, "exact", id="8-3-0"),
+    pytest.param(5, 0, 100, "exact", id="5-0-100"),
+    pytest.param(5, 0, 100, "propagate", id="5-0-100-propagate"),
+    pytest.param(8, 3, 100, "propagate", id="8-3-100-propagate"),
+])
+def test_sgbm_disparity_matches_reference(ndirs, min_disp, speckle, speckle_backend):
     left, right = _pair(1)
     # speckle_range 1: at 16 disparities the default 32 joins every valid pixel.
     cfg = SGBMConfig(num_disparities=16, min_disparity=min_disp, num_directions=ndirs,
                      speckle_window_size=speckle, speckle_range=1,
-                     speckle_backend="exact", backend="xla")
+                     speckle_backend=speckle_backend, backend="xla")
     dr, vr = RD.sgbm_disparity(jnp.asarray(left), jnp.asarray(right), cfg)
     d, v = DP.sgbm_disparity(torch.from_numpy(left), torch.from_numpy(right), cfg)
     np.testing.assert_array_equal(d.numpy(), np.asarray(dr))
@@ -75,6 +82,14 @@ def test_compute_disparity_map_matches_reference():
     ref = np.asarray(RD.compute_disparity_map(jnp.asarray(left), jnp.asarray(right), 16, 0))
     got = DP.compute_disparity_map(torch.from_numpy(left), torch.from_numpy(right), 16, 0)
     np.testing.assert_array_equal(got.numpy(), ref)
+    # The device speckle backend: same map as the reference's, and (the flood
+    # converges on this pair) as the exact host filter's.
+    ref_p = np.asarray(RD.compute_disparity_map(jnp.asarray(left), jnp.asarray(right), 16, 0,
+                                                speckle_backend="propagate"))
+    got_p = DP.compute_disparity_map(torch.from_numpy(left), torch.from_numpy(right), 16, 0,
+                                     speckle_backend="propagate")
+    np.testing.assert_array_equal(got_p.numpy(), ref_p)
+    np.testing.assert_array_equal(got_p.numpy(), ref)
     rgb = np.random.default_rng(2).integers(0, 256, (H, W, 3), dtype=np.uint8)
     np.testing.assert_array_equal(DP.rgb_to_gray_u8(torch.from_numpy(rgb)).numpy(),
                                   np.asarray(RD.rgb_to_gray_u8(jnp.asarray(rgb))))
@@ -178,6 +193,7 @@ def test_port_imports_no_jax():
         "import stereo_reconstruction_cv_tpu_torch.convert, stereo_reconstruction_cv_tpu_torch.native\n"
         "import stereo_reconstruction_cv_tpu_torch.ops.disparity, stereo_reconstruction_cv_tpu_torch.ops.rectify\n"
         "import stereo_reconstruction_cv_tpu_torch.pipeline.stages\n"
+        "import stereo_reconstruction_cv_tpu_torch.ops.cuda.speckle\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "print('ok')\n"
     )
@@ -190,15 +206,29 @@ def test_port_imports_no_jax():
 
 def test_launch_counters_stay_zero_on_cpu():
     left, right = _pair(6)
-    before = {**CK.launches, **SK.launches, **LK.launches}
-    DP.compute_disparity_map(torch.from_numpy(left), torch.from_numpy(right), 16, 0)
-    assert {**CK.launches, **SK.launches, **LK.launches} == before
+    before = {**CK.launches, **SK.launches, **LK.launches, **SPK.launches}
+    assert set(SPK.launches) == {"speckle_labels", "speckle_keep"}
+    for backend in ("exact", "propagate"):
+        DP.compute_disparity_map(torch.from_numpy(left), torch.from_numpy(right), 16, 0,
+                                 speckle_backend=backend)
+    SK.sgm_aggregate(torch.zeros((4, 5, 16), dtype=torch.int16), 8, 32)
+    assert {**CK.launches, **SK.launches, **LK.launches, **SPK.launches} == before
     assert all(v == 0 for v in before.values())
 
 
 def test_unported_options_raise():
-    left, right = (torch.from_numpy(a) for a in _pair(7))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DP.sgbm_disparity(left, right, SGBMConfig(num_disparities=16))  # "propagate"
+    """The reference's default config (speckle_backend "propagate") runs and
+    equals the reference bit for bit; chunked scans stay a TPU-only option."""
+    left, right = _pair(7)
+    cfg = SGBMConfig(num_disparities=16)
+    assert cfg.speckle_backend == "propagate"
+    dr, vr = RD.sgbm_disparity(jnp.asarray(left), jnp.asarray(right), cfg.with_(backend="xla"))
+    left, right = torch.from_numpy(left), torch.from_numpy(right)
+    d, v = DP.sgbm_disparity(left, right, cfg)
+    np.testing.assert_array_equal(d.numpy(), np.asarray(dr))
+    np.testing.assert_array_equal(v.numpy(), np.asarray(vr))
+    assert v.any()
+    with pytest.raises(ValueError, match="speckle_backend"):
+        DP.sgbm_disparity(left, right, cfg.with_(speckle_backend="flood"))
     with pytest.raises(ValueError, match="scan_chunk"):
         DP.sgbm_disparity(left, right, SGBMConfig(num_disparities=16, scan_chunk=64))

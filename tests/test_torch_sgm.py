@@ -74,6 +74,27 @@ def test_kernel_split_composes_to_the_whole(ndirs):
     assert int(d.min()) >= 0 and int(d.max()) <= P2
 
 
+@pytest.mark.parametrize("ndirs", [5, 8])
+def test_aggregate_groups_compose_to_the_whole(ndirs):
+    """What sgm_aggregate_cuda sums: nd*C plus every direction's deltas (the
+    fused one included) in u16 groups of at most four."""
+    C = torch.from_numpy(_volume(40 + ndirs, (11, 23, 24)))
+    dirs = SK.directions_for(ndirs)
+    S = ndirs * C.to(torch.int32)
+    for i in range(0, ndirs, 4):
+        group = sum(SK.path_delta_plain(C, dx, dy, P1, P2) for dx, dy in dirs[i:i + 4])
+        assert int(group.max()) <= 0xFFFF
+        S += group
+    assert torch.equal(S, SK.sgm_aggregate(C, P1, P2, dirs))
+    # One check for both devices: the CPU refuses what the kernels refuse.
+    with pytest.raises(ValueError, match="unit steps"):
+        SK.sgm_aggregate(C, P1, P2, [(2, 0)])
+    with pytest.raises(ValueError, match="65535"):
+        SK.sgm_aggregate(C, P1, 16384, dirs)
+    with pytest.raises(ValueError, match="CUDA"):
+        SK.sgm_aggregate_cuda(C, P1, P2, dirs)
+
+
 def test_bounds_and_cpu_dispatch():
     with pytest.raises(ValueError, match="65535"):
         SK.check_sgm_bounds(P1, 16384, 128, 5)
