@@ -18,6 +18,19 @@ Phases:
                "propagate"), and the same with the host speckle (equal masks);
                the CLI's chain disparity -> reconstruct -> PLY; synthetic pair
                with a known shift
+  4b. tools    the two tool entry points, micro_wta (every variant at 4K x 128)
+               and micro_i16 (nine dtype x op cases), each a main path of its
+               own; wta_volume and every wta_packed variant (both reductions,
+               both extractions, three tiles) EQUAL to the plain WTA at the
+               tool's 4K x 128, at 4K x 256 (the reference's two-level fold)
+               and at a ragged 1187x721 x 96, with one and two delta volumes;
+               sgm_sweep_wta(C, vols) == wta_volume(C, vols with the fused
+               direction accumulated onto the last volume) at 720p x 128 for
+               5 and 8 paths; op_chain EQUAL to its plain version in all nine
+               cases; the op-chain kernels' min instructions counted in the
+               SASS (the identity chain must not be folded away); times
+               (kernels shorter than their wrapper's host work by CUDA-graph
+               replay, as the LR and speckle kernels in phase 3)
   5. 4K        3840x2160 x 256, 5 paths, the rig of the reference's 4K
                benchmark: the pair -> PLY chain (stereo_rectify ->
                rectify_remap -> compute_disparity_map -> reproject -> PLY, host
@@ -34,11 +47,14 @@ Phases:
                labels against the plain flood's fixpoint and the keep mask
                against the host filter on the frame's maps, a speckled random
                map and a serpentine of 40 turns; kernel times
-Each main path of phases 4 and 5 (config 2 with device, host and no speckle,
-the 720p CLI chain, the 4K pair -> PLY, config 3's chain) runs with the launch
-counts zeroed just before it and read just after: every kernel it should run
-must have launched in it, and a path with the host speckle must launch no
-speckle kernel. The kernels line sums the paths' counts. Prints one JSON line
+Each main path of phases 4, 4b and 5 (config 2 with device, host and no
+speckle, the 720p CLI chain, the two tools, the 4K pair -> PLY, config 3's
+chain) runs with the launch counts zeroed just before it and read just after:
+every kernel it should run must have launched in it, and a path with the host
+speckle must launch no speckle kernel. The kernels line sums the paths'
+counts; each kernel's bound there is the larger of its bytes over the card's
+memory rate and its operations over its peak rate (PEAK_BYTES_S,
+PEAK_OPS_S), at the inputs its time was taken on. Prints one JSON line
 of kernel results before the last line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, without that line, when a
 phase fails or no CUDA device is present. Imports no JAX.
@@ -49,6 +65,8 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -76,7 +94,49 @@ KERNELS = {
                        "stereo_reconstruction_cv_tpu/ops/pallas/speckle_pallas.py:172, :278"),
     "speckle_keep": ("stereo_reconstruction_cv_tpu_torch/csrc/speckle.cu",
                      "stereo_reconstruction_cv_tpu/ops/disparity.py:542"),
+    "wta_volume": ("stereo_reconstruction_cv_tpu_torch/csrc/wta.cu",
+                   "stereo_reconstruction_cv_tpu/ops/pallas/sgm_pallas.py:748"),
+    "wta_packed": ("stereo_reconstruction_cv_tpu_torch/csrc/wta.cu",
+                   "tools/micro_wta.py:32, :93"),
+    "op_chain": ("stereo_reconstruction_cv_tpu_torch/csrc/op_chain.cu",
+                 "tools/micro_i16.py:50"),
 }
+# Peak rates of one H100 SXM (NVIDIA's data sheet, dense rates at 700 W):
+# HBM bytes/s, and float32 operations/s outside the tensor cores. The latter
+# serves every type, as the data sheet gives no integer or 16-bit rate
+# outside the tensor cores. It counts an FMA as two operations; the adds,
+# mins and compares counted in OPS_PER issue one per lane and cycle, at half
+# that rate (int32 at a quarter), so an operation bound is a lower bound,
+# about half the card's least time for that work.
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
+# Operations per cell (or pixel) that each kernel's function needs, counted
+# from the arithmetic of the reference it replaces:
+OPS_PER = {
+    # per cell: Birchfield-Tomasi on two planes (4 subtractions, 4 max and 1
+    # min each) and their sum, then 4 for the box's running sums (add, sub
+    # per axis)
+    "cost_volume": 23,
+    # per cell and direction: the DP step (min with P2, min of the two
+    # neighbours, + P1, min), + C, the carry's min and renormalisation, the
+    # u16 accumulate
+    "sgm_path_sweep": 8,
+    # per cell: the DP step (7), S = nd*C + volumes + delta (3), the packed
+    # key (multiply, add, min) and the uniqueness test (multiply, compare,
+    # or)
+    "sgm_sweep_wta": 16,
+    # per pixel: the winner scatter (key, atomic min) and two floor/ceil checks
+    "lr_check": 20,
+    # per pixel: two edges (|difference|, compare, both valid) and a union
+    "speckle_labels": 8,
+    # per pixel: one histogram add and one compare
+    "speckle_keep": 2,
+    # per cell: S (multiply, add per volume), the packed key (3), the
+    # uniqueness test (3)
+    "wta_volume": 8,
+    "wta_packed": 8,
+}
+WTA_VARIANTS = "shipped,shipped2,nat,2nat,nat:8:128,8:128:dot,8:128:bfly,8:512:dot,8:512:bfly"
 SPECKLE_DIFF = 5.0  # max_diff of the synthetic speckle maps
 
 
@@ -118,18 +178,33 @@ def serpentine_map(rng, H: int, W: int, turns: int):
     return np.where(valid, disp, 0.0).astype(np.float32), valid
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Median of `reps` CUDA-event timings of fn() (after the caller warmed it)."""
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take for work that moves `nbytes`
+    (each input read once, each output written once) and does `ops`
+    operations: the larger of the two times, and which one it is."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def sass_min_counts(lib_path: str):
+    """{op_chain kernel name: number of min instructions in its SASS}."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        raise AssertionError("cuobjdump not found: the CUDA toolkit that built the "
+                             "kernels ships it, and the op-chain fold check needs it")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if "op_chain_kernel" in m.group(1) else None
+            if name:
+                counts[name] = 0
+        elif name and "MNMX" in line:
+            counts[name] += 1
+    return counts
 
 
 def max_err(torch, a, b, fa=None, rows: int = 64) -> float:
@@ -212,9 +287,12 @@ def main() -> int:
         from stereo_reconstruction_cv_tpu_torch.ops import rectify as RC
         from stereo_reconstruction_cv_tpu_torch.ops.cuda import cost as CK
         from stereo_reconstruction_cv_tpu_torch.ops.cuda import lr as LK
+        from stereo_reconstruction_cv_tpu_torch.ops.cuda import op_chain as OC
         from stereo_reconstruction_cv_tpu_torch.ops.cuda import sgm as SK
         from stereo_reconstruction_cv_tpu_torch.ops.cuda import speckle as SPK
         from stereo_reconstruction_cv_tpu_torch.pipeline import stages
+        from stereo_reconstruction_cv_tpu_torch.tools import micro_i16, micro_wta
+        from stereo_reconstruction_cv_tpu_torch.utils.timing import cuda_ms, graph_ms, launch_ms
     except ImportError as e:
         log(f"FAIL import: {e} (run from the root of a checkout of the repository)")
         return 1
@@ -268,10 +346,35 @@ def main() -> int:
         _build.speckle_library()
         t2 = time.perf_counter()
         log(f"built CUDA kernels in {t1 - t0:.1f} s, host speckle in {t2 - t1:.1f} s")
+        # ptxas's report: line by line for the main paths' kernels, one
+        # summary for each family of template instances of the tools' kernels.
+        families = {}
         for logf in sorted(_build.BUILD_DIR.glob("libsrcv_kernels-*.log")):
+            entry = None
             for line in logf.read_text().splitlines():
-                if "Used" in line or "spill" in line:
-                    log("  ptxas " + line.strip())
+                if line.startswith("$ "):  # the next compiler command
+                    entry = None
+                m = re.search(r"Compiling entry function '(\S+)'", line)
+                if m:
+                    entry = m.group(1)
+                    continue
+                family = next((f for f in ("op_chain_kernel", "wta_kernel")
+                               if entry and f in entry), None)
+                if family is None:
+                    if "Used" in line or "spill" in line:
+                        log("  ptxas " + line.strip())
+                    continue
+                fam = families.setdefault(family, {"instances": 0, "max_registers": 0,
+                                                   "spilling": 0})
+                m = re.search(r"Used (\d+) registers", line)
+                if m:
+                    fam["instances"] += 1
+                    fam["max_registers"] = max(fam["max_registers"], int(m.group(1)))
+                m = re.search(r"(\d+) bytes spill stores", line)
+                if m and int(m.group(1)) > 0:
+                    fam["spilling"] += 1
+        for family, fam in families.items():
+            log(f"  ptxas {family}: {json.dumps(fam)}")
 
     if failures:
         return 1
@@ -286,10 +389,11 @@ def main() -> int:
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain version (max |err| {err})")
 
-    def check_speckle(label, disp, valid, Ts, reps=5, max_diff=SPECKLE_DIFF):
+    def check_speckle(label, disp, valid, Ts, reps=10, max_diff=SPECKLE_DIFF):
         """Speckle kernels vs the plain flood's fixpoint (which must converge
-        within its max_rounds) and its bincount keep, for each T; CUDA-event
-        times of both at Ts[-1]. -> (labels ms, plain, keep ms, plain)."""
+        within its max_rounds) and its bincount keep, for each T; times of
+        both at Ts[-1], the kernels' by graph replay (device only), the plain
+        versions' by CUDA events. -> (labels ms, plain, keep ms, plain)."""
         labels = SPK.speckle_labels_cuda(disp, valid, max_diff)
         ref, converged = SPK.speckle_labels_plain(disp, valid, max_diff)
         if not converged:
@@ -300,10 +404,10 @@ def main() -> int:
             keep = SPK.speckle_keep_cuda(labels, valid, T)
             note("speckle_keep", max_err(torch, keep, SPK.speckle_keep_plain(ref, valid, T)))
         T = Ts[-1]
-        times = (cuda_ms(torch, lambda: SPK.speckle_labels_cuda(disp, valid, max_diff), reps),
-                 cuda_ms(torch, lambda: SPK.speckle_labels_plain(disp, valid, max_diff), 3),
-                 cuda_ms(torch, lambda: SPK.speckle_keep_cuda(labels, valid, T), reps),
-                 cuda_ms(torch, lambda: SPK.speckle_keep_plain(ref, valid, T), 3))
+        times = (graph_ms(lambda: SPK.speckle_labels_cuda(disp, valid, max_diff), reps),
+                 cuda_ms(lambda: SPK.speckle_labels_plain(disp, valid, max_diff), 3),
+                 graph_ms(lambda: SPK.speckle_keep_cuda(labels, valid, T), reps),
+                 cuda_ms(lambda: SPK.speckle_keep_plain(ref, valid, T), 3))
         log(f"[{label} {tuple(disp.shape)}] speckle_labels: equal to the plain fixpoint; "
             f"kernel {times[0]:.3f} ms, plain {times[1]:.3f} ms; "
             f"{int(valid.sum().item())} valid pixels in {int(torch.unique(labels[valid]).numel())} components")
@@ -321,11 +425,13 @@ def main() -> int:
             Cp = CK.cost_volume_plain(*planes, D, md, 11)
             note("cost_volume", max_err(torch, C, Cp))
             del Cp
-            t_k = cuda_ms(torch, lambda: CK.cost_volume(*planes, D, md, 11), 5)
-            t_p = cuda_ms(torch, lambda: CK.cost_volume_plain(*planes, D, md, 11), 3)
+            t_k = cuda_ms(lambda: CK.cost_volume(*planes, D, md, 11), 5)
+            t_p = cuda_ms(lambda: CK.cost_volume_plain(*planes, D, md, 11), 3)
             log(f"[{label} {H}x{W}x{D} md={md}] cost_volume: equal; kernel {t_k:.3f} ms, plain {t_p:.3f} ms")
             if label == "720p":
-                results["cost_volume"].update(ms=t_k, plain_ms=t_p)
+                results["cost_volume"].update(
+                    ms=t_k, plain_ms=t_p,
+                    **bound(4 * 4 * H * W + 2 * C.numel(), OPS_PER["cost_volume"] * C.numel()))
             for nd in dirs:
                 groups = [g for g in SK.delta_groups(nd) if g]
 
@@ -349,21 +455,33 @@ def main() -> int:
                 keep = LK.lr_check_maps(best, minS, disp, D, md, maxd)
                 keep_p = LK.lr_check_maps_plain(best, minS, disp, D, md, maxd)
                 note("lr_check", max_err(torch, keep, keep_p))
-                t_sk = cuda_ms(torch, lambda: SK.path_deltas_cuda(C, nd, p1, p2), 5)
-                t_sp = cuda_ms(torch, sweeps_plain, 3)
-                t_wk = cuda_ms(torch, lambda: SK.sweep_wta_cuda(C, vols, nd, p1, p2, ur, md), 5)
-                t_wp = cuda_ms(torch, lambda: SK.sweep_wta_plain(C, partial, nd, p1, p2, ur, md), 3)
-                t_lk = cuda_ms(torch, lambda: LK.lr_check_maps(best, minS, disp, D, md, maxd), 5)
-                t_lp = cuda_ms(torch, lambda: LK.lr_check_maps_plain(best, minS, disp, D, md, maxd), 3)
+                t_sk = cuda_ms(lambda: SK.path_deltas_cuda(C, nd, p1, p2), 5)
+                t_sp = cuda_ms(sweeps_plain, 3)
+                t_wk = cuda_ms(lambda: SK.sweep_wta_cuda(C, vols, nd, p1, p2, ur, md), 5)
+                t_wp = cuda_ms(lambda: SK.sweep_wta_plain(C, partial, nd, p1, p2, ur, md), 3)
+                # Graph replay: the LR kernels take less device time than
+                # the wrapper's host work, which single calls would time.
+                t_lk = graph_ms(lambda: LK.lr_check_maps(best, minS, disp, D, md, maxd), 10)
+                t_lp = cuda_ms(lambda: LK.lr_check_maps_plain(best, minS, disp, D, md, maxd), 3)
                 log(f"[{label} {nd}-dir] sgm_path_sweep x{nd - 1}: equal; kernel {t_sk:.3f} ms, plain {t_sp:.3f} ms")
                 log(f"[{label} {nd}-dir] sgm_sweep_wta: equal (disp, valid, best, minS); "
                     f"kernel {t_wk:.3f} ms, plain {t_wp:.3f} ms; valid share {valid.float().mean().item():.4f}")
                 log(f"[{label} {nd}-dir] lr_check: equal; kernel {t_lk:.3f} ms, plain {t_lp:.3f} ms; "
                     f"keep share {keep.float().mean().item():.4f}")
                 if label == "720p" and nd == 8:
-                    results["sgm_path_sweep"].update(ms=t_sk, plain_ms=t_sp)
-                    results["sgm_sweep_wta"].update(ms=t_wk, plain_ms=t_wp)
-                    results["lr_check"].update(ms=t_lk, plain_ms=t_lp)
+                    cells, px = C.numel(), best.numel()
+                    # Each launch reads C and writes its u16 volume; all but
+                    # a group's first also read the volume: 4 + 6 B per cell.
+                    sweep_bytes = cells * sum(4 + 6 * (len(g) - 1) for g in groups)
+                    results["sgm_path_sweep"].update(
+                        ms=t_sk, plain_ms=t_sp,
+                        **bound(sweep_bytes, OPS_PER["sgm_path_sweep"] * (nd - 1) * cells))
+                    results["sgm_sweep_wta"].update(
+                        ms=t_wk, plain_ms=t_wp,
+                        **bound(cells * (2 + 2 * len(vols)) + 13 * px,
+                                OPS_PER["sgm_sweep_wta"] * cells))
+                    results["lr_check"].update(ms=t_lk, plain_ms=t_lp,
+                                               **bound(13 * px, OPS_PER["lr_check"] * px))
                 del vols, vols_p, partial
                 if label == "720p":
                     # The S-volume entry point: every direction through the
@@ -374,18 +492,28 @@ def main() -> int:
                     if max(max_err(torch, a, b) for a, b in zip(SK.wta_maps(S, md, ur), chain)) != 0:
                         raise AssertionError(f"wta_maps(sgm_aggregate(C)) != sgm_wta(C), {nd} paths")
                     del S
-                    t_ak = cuda_ms(torch, lambda: SK.sgm_aggregate(C, p1, p2, dirs_nd), 3)
-                    t_ap = cuda_ms(torch, lambda: SK.sgm_aggregate_plain(C, p1, p2, dirs_nd), 1)
+                    t_ak = cuda_ms(lambda: SK.sgm_aggregate(C, p1, p2, dirs_nd), 3)
+                    t_ap = cuda_ms(lambda: SK.sgm_aggregate_plain(C, p1, p2, dirs_nd), 1)
+                    # The function reads C and writes the int32 S volume, and
+                    # runs one DP step per cell and direction.
+                    b_a = bound(6 * C.numel(), OPS_PER["sgm_path_sweep"] * nd * C.numel())
                     log(f"[{label} {nd}-dir] sgm_aggregate (S volume): equal; "
-                        f"wta_maps(S) == sgm_wta; kernels {t_ak:.3f} ms, plain {t_ap:.3f} ms")
+                        f"wta_maps(S) == sgm_wta; kernels {t_ak:.3f} ms, plain {t_ap:.3f} ms; "
+                        f"bound {b_a['bound_ms']:.4f} ms ({b_a['bound_by']}), "
+                        f"share {b_a['bound_ms'] / t_ak:.4f}")
             del C
             torch.cuda.empty_cache()
             disp_np, valid_np = speckled_map(rng, H, W)
             times = check_speckle(label, torch.from_numpy(disp_np).to(dev),
                                   torch.from_numpy(valid_np).to(dev), (20, 100))
             if label == "720p":
-                results["speckle_labels"].update(ms=times[0], plain_ms=times[1])
-                results["speckle_keep"].update(ms=times[2], plain_ms=times[3])
+                px = disp_np.size
+                results["speckle_labels"].update(
+                    ms=times[0], plain_ms=times[1],
+                    **bound(9 * px, OPS_PER["speckle_labels"] * px))
+                results["speckle_keep"].update(
+                    ms=times[2], plain_ms=times[3],
+                    **bound(6 * px, OPS_PER["speckle_keep"] * px))
 
     # The main paths (phases 4 and 5): each runs with every launch count set
     # to 0 just before it and read just after, so each shows its own
@@ -399,11 +527,11 @@ def main() -> int:
     def main_path(label, launched, not_launched=()):
         """Counts zeroed before the body and read after it: each kernel of
         `launched` must have run in it, none of `not_launched`."""
-        for mod in (CK, SK, LK, SPK):
+        for mod in (CK, SK, LK, SPK, OC):
             for k in mod.launches:
                 mod.launches[k] = 0
         yield
-        got = {**CK.launches, **SK.launches, **LK.launches, **SPK.launches}
+        got = {**CK.launches, **SK.launches, **LK.launches, **SPK.launches, **OC.launches}
         log(f"launches on {label}: {json.dumps(got)}")
         for k in main_counts:
             main_counts[k] += got[k]
@@ -483,6 +611,133 @@ def main() -> int:
             f"within 1 px of {shift}: {share:.4f}")
         if not (n == n_file == n_mask) or n < 0.5 * H * (W - 128) or share < 0.95:
             raise AssertionError("720p point cloud is wrong")
+
+    # ------------------------------------------------------------- 4b. tools
+    @phase("4b tools: WTA pass and op chain")
+    def _():
+        # The tool entry points, each a main path of its own.
+        with main_path(f"micro_wta 128 {WTA_VARIANTS}", ("wta_volume", "wta_packed")):
+            rc = micro_wta.main(["128", WTA_VARIANTS])
+        if rc != 0:
+            raise AssertionError(f"micro_wta exited with {rc}")
+        with main_path("micro_i16", ("op_chain",)):
+            rc = micro_i16.main()
+        if rc != 0:
+            raise AssertionError(f"micro_i16 exited with {rc}")
+        torch.cuda.empty_cache()
+
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 4)
+
+        def rand_volume(shape, hi, rows=256):
+            """(A, B, D) int16 of integers in [0, hi), made on the card in
+            bands of rows; values from 2^15 up hold u16 bits."""
+            out = torch.empty(shape, dtype=torch.int16, device=dev)
+            for a in range(0, shape[0], rows):
+                band = out[a:a + rows]
+                band.copy_(torch.randint(0, hi, band.shape, generator=gen, device=dev,
+                                         dtype=torch.int32))
+            return out
+
+        def wta_plain(C, vols, ur_, md_, rows=256):
+            """The plain WTA in bands of rows (its int64 temporaries)."""
+            parts = [SK.wta_volume_plain(C[a:a + rows], [v[a:a + rows] for v in vols], ur_, md_)
+                     for a in range(0, C.shape[0], rows)]
+            return tuple(torch.cat([p[k] for p in parts]) for k in range(4))
+
+        variants = [(red, ext, tile) for red in SK.REDUCTIONS for ext in SK.EXTRACTS
+                    for tile in ((8, 512), (8, 128), (3, 100))]
+        cases = [("4K tool", (3840 - 128, 2160, 128), 10, 0),
+                 ("4K fold", (3840 - 256, 2160, 256), 10, 0),
+                 ("ragged", (1187, 721, 96), 10, 5)]
+        for label, shape, ur_c, md_c in cases:
+            C = rand_volume(shape, 20000)
+            ds = [rand_volume(shape, 40000), rand_volume(shape, 40000)]
+            for nv in (1, 2):
+                vols = ds[:nv]
+                ref = wta_plain(C, vols, ur_c, md_c)
+                got = SK.wta_volume(C, vols, ur_c, md_c)
+                note("wta_volume", max(max_err(torch, a, b) for a, b in zip(got, ref)))
+                ref_packed = SK.pack_maps(*ref)
+                for red, ext, (bh, bw) in variants:
+                    out = SK.wta_packed(C, vols, ur_c, md_c, bh, bw, red, ext)
+                    note("wta_packed", max_err(torch, out, ref_packed))
+                del got, out
+                cells, px = C.numel(), shape[0] * shape[1]
+                t_k = cuda_ms(lambda: SK.wta_volume(C, vols, ur_c, md_c), 5)
+                log(f"[{label} {shape} md={md_c}, {nv} volume(s)] wta_volume and "
+                    f"{len(variants)} wta_packed variants: equal to the plain WTA; wta_volume "
+                    f"{t_k:.3f} ms; valid share {ref[1].float().mean().item():.4f}")
+                if label == "4K tool":
+                    t_p = cuda_ms(lambda: wta_plain(C, vols, ur_c, md_c), 1)
+                    var_ms = {f"{red}/{ext} {bh}x{bw}":
+                              cuda_ms(lambda: SK.wta_packed(C, vols, ur_c, md_c, bh, bw, red, ext), 5)
+                              for red, ext, (bh, bw) in variants}
+                    log(f"[{label}, {nv} volume(s)] wta_volume plain {t_p:.3f} ms; wta_packed (ms): "
+                        + json.dumps(var_ms))
+                    if nv == 1:
+                        t_pp = cuda_ms(lambda: SK.pack_maps(*wta_plain(C, vols, ur_c, md_c)), 1)
+                        results["wta_volume"].update(
+                            ms=t_k, plain_ms=t_p,
+                            **bound(cells * (2 + 2 * nv) + 13 * px, OPS_PER["wta_volume"] * cells))
+                        results["wta_packed"].update(
+                            ms=var_ms["native/sum 8x512"], plain_ms=t_pp,
+                            **bound(cells * (2 + 2 * nv) + 32 * px, OPS_PER["wta_packed"] * cells))
+                del ref, ref_packed
+            del C, ds, vols
+            torch.cuda.empty_cache()
+
+        # sgm_pallas's docstring identity: the fused last sweep + WTA equals
+        # the standalone pass once that sweep's deltas are accumulated onto
+        # the last volume (5 paths: the only one, 4 + 1 directions; 8 paths:
+        # the 3-direction volume B). A fifth direction overflows u16 past
+        # P2 = 13107, so the check runs at the default P2 only.
+        if 5 * p2 > 0xFFFF:
+            raise AssertionError(f"P2={p2}: five directions overflow a u16 volume")
+        rng = np.random.default_rng(SEED + 5)
+        C = CK.cost_volume(*planes_for(rng, 720, 1280, 128, 0), 128, 0, 11)
+        for nd in (5, 8):
+            vols = SK.path_deltas_cuda(C, nd, p1, p2)
+            fused = SK.sweep_wta_cuda(C, vols, nd, p1, p2, ur, 0)
+            last = vols[-1].clone()
+            SK.path_sweep_cuda(C, last, *SK.FUSED_DIR, p1, p2, accumulate=True)
+            alone = SK.wta_volume(C, vols[:-1] + [last], ur, 0)
+            if max(max_err(torch, a, b) for a, b in zip(fused, alone)) != 0:
+                raise AssertionError(f"sgm_sweep_wta != wta_volume of the accumulated volumes, {nd} paths")
+            log(f"[720p x128 {nd}-dir] sgm_sweep_wta(C, vols) == wta_volume(C, vols with "
+                f"{SK.FUSED_DIR} accumulated onto the last volume)")
+        del C, vols, last
+
+        # The op chain: all nine cases against the plain chain; then the
+        # SASS of the identity chain (add, min) must still hold its mins.
+        for dtype, ops in micro_i16.CASES:
+            x = micro_i16.make_input(dtype, device=dev)
+            ref = OC.op_chain_plain(x, ops)
+            t_p = cuda_ms(lambda: OC.op_chain_plain(x, ops), 3)
+            got = OC.op_chain(x, ops)
+            if dtype == torch.uint16:
+                got, ref = got.to(torch.int32), ref.to(torch.int32)
+            note("op_chain", max_err(torch, got, ref))
+            # Graph replay: a launch takes less device time than its
+            # wrapper's host work, which back-to-back calls would time.
+            t_k = graph_ms(lambda: OC.op_chain(x, ops), iters=20)
+            t_eager = launch_ms(lambda: OC.op_chain(x, ops), iters=20)
+            log(f"[op_chain {tuple(x.shape)} {dtype} {'+'.join(ops)}] equal; kernel "
+                f"{t_k * 1e3:.2f} us (graph replay); back-to-back eager calls "
+                f"{t_eager * 1e3:.2f} us; plain {t_p:.3f} ms")
+            if dtype == torch.float32 and "roll" in ops:
+                n = x.numel()
+                results["op_chain"].update(
+                    ms=t_k, plain_ms=t_p,
+                    **bound(2 * x.element_size() * n, (("add" in ops) + ("min" in ops)) * OC.REPS * n))
+        counts = sass_min_counts(_build.kernels_library()._name)
+        # E = 16 elements per lane, ops = add + min (bits 6): 16 mins per
+        # step (or half that where two 16-bit values share an instruction),
+        # REPS steps written out.
+        found = {k: v for k, v in counts.items() if "Li16ELi6EE" in k}
+        log(f"op_chain SASS, add+min at W = 512: min instructions {json.dumps(found)}")
+        if len(found) != len(OC.DTYPES) or min(found.values()) < OC.REPS * 8:
+            raise AssertionError("an add+min op-chain kernel lost its mins (folded)")
 
     # ---------------------------------------------------------------- 5. 4K
     frame = {}  # phase 5's rectified pair, disparity map and device-chain maps, for phase 6
@@ -654,11 +909,11 @@ def main() -> int:
         log("[4K] disparity map of the main path equals the plain chain's")
         # Each kernel alone at this shape, and the host speckle pass.
         kernel_ms = {
-            "cost_volume": cuda_ms(torch, lambda: CK.cost_volume(*planes, D, md, cfg.block_size), 3),
-            f"sgm_path_sweep x{nd - 1}": cuda_ms(torch, lambda: SK.path_deltas_cuda(C, nd, p1, p2), 3),
-            "sgm_sweep_wta": cuda_ms(torch, lambda: SK.sweep_wta_cuda(C, vols, nd, p1, p2, ur, md), 3),
-            "lr_check": cuda_ms(torch, lambda: LK.lr_check_maps(best, minS, disp, D, md,
-                                                                cfg.disp12_max_diff), 3),
+            "cost_volume": cuda_ms(lambda: CK.cost_volume(*planes, D, md, cfg.block_size), 3),
+            f"sgm_path_sweep x{nd - 1}": cuda_ms(lambda: SK.path_deltas_cuda(C, nd, p1, p2), 3),
+            "sgm_sweep_wta": cuda_ms(lambda: SK.sweep_wta_cuda(C, vols, nd, p1, p2, ur, md), 3),
+            "lr_check (graph replay)": graph_ms(lambda: LK.lr_check_maps(
+                best, minS, disp, D, md, cfg.disp12_max_diff), 10),
             "host speckle (wall, copies included)": speckle_ms,
         }
         log("4K disparity breakdown (ms): " + json.dumps(kernel_ms))
@@ -680,7 +935,7 @@ def main() -> int:
                          SPECKLE_DIFF))
         speckle_ms = {}
         for label, dm, vm, diff in maps:
-            times = check_speckle(label, dm, vm, (20, T), reps=3, max_diff=diff)
+            times = check_speckle(label, dm, vm, (20, T), reps=5, max_diff=diff)
             keep = SPK.speckle_filter(dm, vm, T, diff)
             if not torch.equal(keep, DP.filter_speckles_host(dm, vm, T, diff)):
                 raise AssertionError(f"{label}: the speckle kernels' mask differs from the host filter's")
@@ -697,6 +952,11 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": main_counts[name], "max_abs_err": results[name]["max_abs_err"],
             "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"],
+            "bound_ms": results[name]["bound_ms"], "bound_by": results[name]["bound_by"],
+            # No one PyTorch call computes any of these functions: each
+            # fuses several steps (cost + box, DP + WTA, scatter + check,
+            # labels + sizes, a 96-step chain).
+            "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

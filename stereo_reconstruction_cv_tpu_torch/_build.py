@@ -22,6 +22,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 ROOT = _PKG.parent
 BUILD_DIR = ROOT / "build"
@@ -140,8 +142,11 @@ def _declare_kernels(lib: ctypes.CDLL) -> None:
     lib.srcv_lr_check.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
     lib.srcv_speckle_labels.argtypes = [P, P, P, I, I, ctypes.c_float, P]
     lib.srcv_speckle_keep.argtypes = [P, P, P, P, I, I, P]
+    lib.srcv_wta.argtypes = [P] * 3 + [I] * 11 + [P] * 6
+    lib.srcv_op_chain.argtypes = [P, P, I, I, I, I, P]
     for fn in (lib.srcv_cost_volume, lib.srcv_sgm_path_sweep, lib.srcv_sgm_sweep_wta,
-               lib.srcv_lr_check, lib.srcv_speckle_labels, lib.srcv_speckle_keep):
+               lib.srcv_lr_check, lib.srcv_speckle_labels, lib.srcv_speckle_keep,
+               lib.srcv_wta, lib.srcv_op_chain):
         fn.restype = I
     lib.srcv_error_string.argtypes = [I]
     lib.srcv_error_string.restype = ctypes.c_char_p
@@ -152,3 +157,12 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         name = lib.srcv_error_string(err).decode()
         raise RuntimeError(f"{what}: launch failed with CUDA error {err} ({name})")
+
+
+def count(launches: dict, name: str) -> None:
+    """Add one to a wrapper's launch count for the kernel it just launched.
+    A call made while the current stream is captured into a CUDA graph only
+    records the kernel, so it adds nothing: the graph's replays launch it,
+    and utils/timing.graph_ms counts those."""
+    if not torch.cuda.is_current_stream_capturing():
+        launches[name] += 1

@@ -18,9 +18,9 @@ import numpy as np
 
 
 def cmd_disparity(args) -> int:
-    from stereo_reconstruction_cv_tpu.io.image import load_stereo_pair, save_image
-    from stereo_reconstruction_cv_tpu.utils.draw import colormap_jet
+    from stereo_reconstruction_cv_tpu_torch.io.image import load_stereo_pair, save_image
     from stereo_reconstruction_cv_tpu_torch.pipeline import stages
+    from stereo_reconstruction_cv_tpu_torch.utils.draw import colormap_jet
 
     imL, imR = load_stereo_pair(args.pair)
     disp = stages.disparity(imL, imR, ndisp=args.ndisp, mindis=args.mindisp,
@@ -33,8 +33,8 @@ def cmd_disparity(args) -> int:
 
 
 def cmd_reconstruct(args) -> int:
-    from stereo_reconstruction_cv_tpu.io.image import load_rgb, load_stereo_pair
     from stereo_reconstruction_cv_tpu_torch import convert
+    from stereo_reconstruction_cv_tpu_torch.io.image import load_rgb, load_stereo_pair
     from stereo_reconstruction_cv_tpu_torch.pipeline import stages
 
     if not args.rectification:

@@ -1,20 +1,25 @@
 """Carry the reference's state across to the port.
 
-The dense path has no learned weights; its state is the shared
-``SGBMConfig`` (imported from the reference as is) and the rig geometry. This
-module converts the reference's rectification, either its ``RectifyResult``
-(arrays converted with ``np.asarray``) or the ``rectification.npz`` its
-``rectify`` verb writes (key ``Q``; ``R1, R2, P1, P2`` where present), into the
-port's ``RectifyResult`` of float64 tensors.
+The dense path has no learned weights; its state is the ``SGBMConfig`` and
+the rig geometry. This module converts both:
+
+- ``sgbm_config``: the reference's ``SGBMConfig`` (or any object with its
+  fields) into the port's own ``config.SGBMConfig``, field by field;
+- ``from_reference_rectification``: the reference's ``RectifyResult`` (arrays
+  converted with ``np.asarray``) or the ``rectification.npz`` its ``rectify``
+  verb writes (key ``Q``; ``R1, R2, P1, P2`` where present) into the port's
+  ``RectifyResult`` of float64 tensors.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
 import torch
 
+from stereo_reconstruction_cv_tpu_torch.config import SGBMConfig
 from stereo_reconstruction_cv_tpu_torch.ops.rectify import RectifyResult
 
 _FIELDS = ("R1", "R2", "P1", "P2", "Q")
@@ -47,3 +52,9 @@ def from_reference_rectification(obj, device="cpu") -> RectifyResult:
         out[name] = torch.as_tensor(arr, device=device)
     return RectifyResult(**out)
 
+
+def sgbm_config(ref_cfg) -> SGBMConfig:
+    """The reference's SGBMConfig -> the port's, field by field (every
+    field of the port's class must be present on `ref_cfg`)."""
+    return SGBMConfig(**{f.name: getattr(ref_cfg, f.name)
+                         for f in dataclasses.fields(SGBMConfig)})

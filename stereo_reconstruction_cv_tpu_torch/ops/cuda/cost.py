@@ -136,5 +136,5 @@ def cost_volume(sl, sr, rawl, rawr, num_disp: int, min_disp: int = 0,
             H, W, num_disp, min_disp, block_size, stream,
         )
     _build.check(lib, err, "cost_volume")
-    launches["cost_volume"] += 1
+    _build.count(launches, "cost_volume")
     return out

@@ -104,5 +104,5 @@ def lr_check_maps(best: torch.Tensor, minS: torch.Tensor, disp: torch.Tensor,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "lr_check")
-    launches["lr_check"] += 1
+    _build.count(launches, "lr_check")
     return keep

@@ -16,6 +16,16 @@ replace the TPU kernels of ``ops/pallas/sgm_pallas.py``:
 cost volume: CPU takes the plain version, CUDA launches the kernels (or
 raises). Delta volumes hold u16 bits in int16-typed tensors; ``u16`` widens
 them.
+
+The standalone WTA pass, on no main path, is the wrapper of ``csrc/wta.cu``:
+
+- ``wta_volume`` (``_wta_volume``): the four maps of
+  wta_maps(nd*C + the delta volumes), nd = 5 for one volume and 8 for two;
+  ``sgm_sweep_wta(C, vols)`` equals it once the last direction has been
+  accumulated onto one of the volumes;
+- ``wta_packed`` (``tools/micro_wta.py``'s ``wta_nat`` and ``wta_variant``):
+  the same maps packed into (A, B, 8) f32, with the probes' tile and
+  reduction knobs, which change no bit of the output.
 """
 
 from __future__ import annotations
@@ -36,7 +46,7 @@ FUSED_DIR = (-1, 0)
 _BIG = 1 << 29
 
 # Kernel launches by this module's wrappers (read and reset by chip_smoke.py).
-launches = {"sgm_path_sweep": 0, "sgm_sweep_wta": 0}
+launches = {"sgm_path_sweep": 0, "sgm_sweep_wta": 0, "wta_volume": 0, "wta_packed": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -213,7 +223,7 @@ def path_sweep_cuda(C: torch.Tensor, acc: torch.Tensor, dx: int, dy: int,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "sgm_path_sweep")
-    launches["sgm_path_sweep"] += 1
+    _build.count(launches, "sgm_path_sweep")
 
 
 def _sweep_group(C: torch.Tensor, acc: torch.Tensor, group, p1: int, p2: int) -> None:
@@ -290,7 +300,7 @@ def sweep_wta_cuda(C: torch.Tensor, vols: Sequence[torch.Tensor],
             min_disp, lg, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "sgm_sweep_wta")
-    launches["sgm_sweep_wta"] += 1
+    _build.count(launches, "sgm_sweep_wta")
     return disp, valid, best, minS
 
 
@@ -306,3 +316,113 @@ def sgm_wta(C: torch.Tensor, p1: int, p2: int, num_directions: int = 8,
     _require_cuda_cost(C)
     vols = path_deltas_cuda(C, num_directions, p1, p2)
     return sweep_wta_cuda(C, vols, num_directions, p1, p2, uniqueness_ratio, min_disp)
+
+
+# ---------------------------------------------------------------------------
+# The standalone WTA pass (csrc/wta.cu)
+# ---------------------------------------------------------------------------
+
+REDUCTIONS = ("native", "butterfly")  # redux.sync, or an __shfl_xor_sync butterfly
+EXTRACTS = ("sum", "shuffle")         # S[best -+ 1] by masked warp sum, or by __shfl_sync
+
+
+def _check_wta_inputs(C: torch.Tensor, vols: Sequence[torch.Tensor],
+                      uniqueness_ratio: int) -> int:
+    """Raise on inputs the WTA pass does not take; -> nd (5 or 8)."""
+    if C.dtype != torch.int16 or C.dim() != 3:
+        raise ValueError("C must be an (A, B, D) int16 tensor")
+    if not 1 <= C.shape[2] <= 512:
+        raise ValueError(f"D={C.shape[2]} outside [1, 512]")
+    if not 1 <= len(vols) <= 2:
+        raise ValueError(f"the WTA pass takes one or two delta volumes, got {len(vols)}")
+    for v in vols:
+        if v.shape != C.shape or v.dtype != torch.int16 or v.device != C.device:
+            raise ValueError("delta volumes must be int16 tensors of C's shape and device")
+    if not 0 <= uniqueness_ratio <= 100:
+        raise ValueError(f"uniqueness_ratio={uniqueness_ratio} outside [0, 100]")
+    return 5 if len(vols) == 1 else 8
+
+
+def wta_volume_plain(C: torch.Tensor, vols: Sequence[torch.Tensor],
+                     uniqueness_ratio: int, min_disp: int):
+    """wta_maps(nd*C + sum of the u16 volumes) -> (disp, valid, best, minS)."""
+    nd = 5 if len(vols) == 1 else 8
+    S = nd * C.to(torch.int32)
+    for v in vols:
+        S += u16(v)
+    return wta_maps(S, min_disp, uniqueness_ratio)
+
+
+def pack_maps(disp, valid, best, minS) -> torch.Tensor:
+    """(A, B) maps -> (A, B, 8) f32: disp, 1 - bad, best, minS, then zeros."""
+    out = torch.zeros(disp.shape + (8,), dtype=torch.float32, device=disp.device)
+    for i, m in enumerate((disp, valid, best, minS)):
+        out[..., i] = m.to(torch.float32)
+    return out
+
+
+def wta_packed_plain(C: torch.Tensor, vols: Sequence[torch.Tensor],
+                     uniqueness_ratio: int, min_disp: int) -> torch.Tensor:
+    """wta_volume_plain's maps packed into (A, B, 8) f32."""
+    return pack_maps(*wta_volume_plain(C, vols, uniqueness_ratio, min_disp))
+
+
+def _launch_wta(C, vols, nd, uniqueness_ratio, min_disp, bh, bw, bfly, shfl, outs):
+    if C.device.type != "cuda":
+        raise ValueError(f"CUDA kernel called on a {C.device} tensor")
+    if not C.is_contiguous() or not all(v.is_contiguous() for v in vols):
+        raise ValueError("C and the delta volumes must be contiguous")
+    A, B, D = C.shape
+    dsb = vols[1].data_ptr() if len(vols) > 1 else None
+    ptrs = [None if t is None else t.data_ptr() for t in outs]
+    lib = _build.kernels_library()
+    with torch.cuda.device(C.device):
+        err = lib.srcv_wta(
+            C.data_ptr(), vols[0].data_ptr(), dsb, A, B, D, nd, uniqueness_ratio,
+            min_disp, _pow2_at_least(D).bit_length() - 1, bh, bw, int(bfly), int(shfl),
+            *ptrs, torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, err, "wta")
+
+
+def wta_volume(C: torch.Tensor, vols: Sequence[torch.Tensor],
+               uniqueness_ratio: int = 10, min_disp: int = 0):
+    """Winner-take-all over S = nd*C + the one or two u16 delta volumes
+    (nd = 5 or 8), pixel by pixel: C (A, B, D) int16 in any layout of the
+    pixels -> (disp f32, valid bool, best i32, minS i32), each (A, B). The
+    kernel on a CUDA tensor, the plain version on the CPU."""
+    nd = _check_wta_inputs(C, vols, uniqueness_ratio)
+    if C.device.type == "cpu":
+        return wta_volume_plain(C, vols, uniqueness_ratio, min_disp)
+    A, B, _ = C.shape
+    disp = torch.empty((A, B), dtype=torch.float32, device=C.device)
+    valid = torch.empty((A, B), dtype=torch.bool, device=C.device)
+    best = torch.empty((A, B), dtype=torch.int32, device=C.device)
+    minS = torch.empty((A, B), dtype=torch.int32, device=C.device)
+    _launch_wta(C, vols, nd, uniqueness_ratio, min_disp, 1, 64, False, False,
+                (disp, valid, best, minS, None))
+    _build.count(launches, "wta_volume")
+    return disp, valid, best, minS
+
+
+def wta_packed(C: torch.Tensor, vols: Sequence[torch.Tensor],
+               uniqueness_ratio: int = 10, min_disp: int = 0, bh: int = 8, bw: int = 512,
+               reduction: str = "native", extract: str = "sum") -> torch.Tensor:
+    """wta_volume's maps packed into (A, B, 8) f32 (disp, 1 - bad, best,
+    minS, zeros), as the probes of tools/micro_wta.py write them. One thread
+    block takes a tile of bh x bw pixels; `reduction` and `extract` pick the
+    warp reduction and the S[best -+ 1] read (REDUCTIONS, EXTRACTS). Neither
+    the tile nor the knobs change a bit of the output."""
+    nd = _check_wta_inputs(C, vols, uniqueness_ratio)
+    if reduction not in REDUCTIONS or extract not in EXTRACTS:
+        raise ValueError(f"reduction in {REDUCTIONS}, extract in {EXTRACTS}; "
+                         f"got {reduction!r}, {extract!r}")
+    if bh < 1 or bw < 1:
+        raise ValueError(f"tile {bh}x{bw} must be at least 1x1")
+    if C.device.type == "cpu":
+        return wta_packed_plain(C, vols, uniqueness_ratio, min_disp)
+    out = torch.empty(C.shape[:2] + (8,), dtype=torch.float32, device=C.device)
+    _launch_wta(C, vols, nd, uniqueness_ratio, min_disp, bh, bw,
+                reduction == "butterfly", extract == "shuffle", (None,) * 4 + (out,))
+    _build.count(launches, "wta_packed")
+    return out

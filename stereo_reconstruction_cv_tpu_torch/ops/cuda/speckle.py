@@ -157,7 +157,7 @@ def speckle_labels_cuda(disp: torch.Tensor, valid: torch.Tensor, max_diff: float
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "speckle_labels")
-    launches["speckle_labels"] += 1
+    _build.count(launches, "speckle_labels")
     return labels
 
 
@@ -179,7 +179,7 @@ def speckle_keep_cuda(labels: torch.Tensor, valid: torch.Tensor, max_size: int) 
             H * W, int(max_size), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "speckle_keep")
-    launches["speckle_keep"] += 1
+    _build.count(launches, "speckle_keep")
     return keep
 
 

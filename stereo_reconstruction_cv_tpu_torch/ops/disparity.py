@@ -1,7 +1,8 @@
 """Dense disparity: semi-global block matching (SGBM) on tensors.
 
 Port of ``stereo_reconstruction_cv_tpu/ops/disparity.py`` (cv2.StereoSGBM
-parity, the reference's exact parameter set in ``config.SGBMConfig``):
+parity, the reference's exact parameter set in the port's own
+``config.SGBMConfig``):
 
   x-Sobel prefilter (clipped)         -> tensor ops
   BT cost volume + box aggregation    -> cuda/cost.py  (kernel cost_volume)
@@ -22,8 +23,8 @@ from __future__ import annotations
 
 import torch
 
-from stereo_reconstruction_cv_tpu.config import SGBMConfig
 from stereo_reconstruction_cv_tpu_torch import native
+from stereo_reconstruction_cv_tpu_torch.config import SGBMConfig
 from stereo_reconstruction_cv_tpu_torch.ops.cuda.cost import (
     check_cost_bounds,
     cost_volume,

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from stereo_reconstruction_cv_tpu.io import ply as PLY
+from stereo_reconstruction_cv_tpu_torch.io import ply as PLY
 from stereo_reconstruction_cv_tpu_torch.ops import disparity as DP
 from stereo_reconstruction_cv_tpu_torch.ops import geometry as G
 

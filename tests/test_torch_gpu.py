@@ -17,6 +17,7 @@ import torch
 from stereo_reconstruction_cv_tpu_torch import native
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import cost as CK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import lr as LK
+from stereo_reconstruction_cv_tpu_torch.ops.cuda import op_chain as OC
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import sgm as SK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import speckle as SPK
 
@@ -142,3 +143,47 @@ def test_speckle_kernels_equal_plain(dev, kind, H, W, T):
     assert torch.equal(keep, SPK.speckle_keep_plain(ref, valid, T))
     assert torch.equal(SPK.speckle_keep_cuda(ref, valid, T), keep)
     assert np.array_equal(keep.cpu().numpy(), native.filter_speckles(disp_np, valid_np, T, 5.0))
+
+
+def _wta_inputs(seed, A, B, D, dev, hi=(20000, 40000)):
+    """C and two u16 delta volumes (int16 bits) on the card."""
+    rng = np.random.default_rng(seed)
+    C = torch.from_numpy(rng.integers(0, hi[0], (A, B, D)).astype(np.int16)).to(dev)
+    ds = [torch.from_numpy(rng.integers(0, hi[1], (A, B, D)).astype(np.uint16).view(np.int16)).to(dev)
+          for _ in range(2)]
+    return C, ds
+
+
+@pytest.mark.parametrize("A,B,D,ur,md,hi", [
+    (7, 33, 1, 10, 0, (20000, 40000)), (19, 37, 24, 10, 3, (20000, 40000)),
+    (9, 41, 96, 0, 0, (20000, 40000)), (11, 13, 24, 10, 0, (6, 12)),  # ties, uniqueness hits
+    (5, 3, 3, 10, 1, (6, 12)), (3, 17, 256, 10, 2, (20000, 40000)),
+])
+def test_wta_kernels_equal_plain(dev, A, B, D, ur, md, hi):
+    C, ds = _wta_inputs(A * B + D, A, B, D, dev, hi)
+    for nv in (1, 2):
+        vols = ds[:nv]
+        ref = SK.wta_volume_plain(C, vols, ur, md)
+        got = SK.wta_volume(C, vols, ur, md)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+        packed = SK.pack_maps(*ref)
+        for red in SK.REDUCTIONS:
+            for ext in SK.EXTRACTS:
+                for bh, bw in ((8, 512), (1, 1), (3, 5), (2, 64)):
+                    out = SK.wta_packed(C, vols, ur, md, bh, bw, red, ext)
+                    torch.cuda.synchronize()
+                    assert torch.equal(out, packed), (nv, red, ext, bh, bw)
+
+
+@pytest.mark.parametrize("H,W", [(37, 512), (5, 128), (1, 32)])
+@pytest.mark.parametrize("dtype", list(OC.DTYPES))
+def test_op_chain_kernel_equals_plain(dev, H, W, dtype):
+    x = torch.from_numpy(np.random.default_rng(H + W).integers(1, 1000, (H, W))).to(dtype).to(dev)
+    for ops in (("add", "min"), ("roll", "add", "min"), ("roll",), ("roll", "add"), ()):
+        got = OC.op_chain(x, ops)
+        ref = OC.op_chain_plain(x, ops)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.equal(got.view(torch.int16) if dtype == torch.uint16 else got,
+                                                  ref.view(torch.int16) if dtype == torch.uint16 else ref)

@@ -2,11 +2,16 @@
 
 The reference runs its XLA path (backend="xla"); the port runs its plain
 versions (CPU tensors). Disparity and masks are exact, points rtol 1e-5.
-Also: the port's own g++ speckle build, the rectification converter, the CLI,
-and that importing the port pulls in no jax.
+Also: the port's own g++ speckle build, the rectification and config
+converters, the CLI, the PLY writer's bytes, and the import boundary: no
+module of the port (nor chip_smoke.py) imports jax or the JAX package, and
+importing the port pulls in neither jax nor PIL.
 """
 
+import ast
+import dataclasses
 import os
+import pathlib
 import subprocess
 import sys
 
@@ -23,14 +28,18 @@ from stereo_reconstruction_cv_tpu.ops import disparity as RD
 from stereo_reconstruction_cv_tpu.ops import rectify as RR
 from stereo_reconstruction_cv_tpu.pipeline import stages as RS
 from stereo_reconstruction_cv_tpu_torch import cli, convert, native
+from stereo_reconstruction_cv_tpu_torch import config as port_config
+from stereo_reconstruction_cv_tpu_torch.io import ply as port_ply
 from stereo_reconstruction_cv_tpu_torch.ops import disparity as DP
 from stereo_reconstruction_cv_tpu_torch.ops import rectify as RC
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import cost as CK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import lr as LK
+from stereo_reconstruction_cv_tpu_torch.ops.cuda import op_chain as OC
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import sgm as SK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import speckle as SPK
 from stereo_reconstruction_cv_tpu_torch.pipeline import stages
 
+ROOT = pathlib.Path(__file__).resolve().parent.parent
 K_4K = np.array([[2253.71, 0.0, 1929.69], [0.0, 2244.72, 1057.63], [0.0, 0.0, 1.0]])
 H, W, SHIFT = 48, 96, 7
 
@@ -67,13 +76,14 @@ def test_sgbm_disparity_matches_reference(ndirs, min_disp, speckle, speckle_back
                      speckle_window_size=speckle, speckle_range=1,
                      speckle_backend=speckle_backend, backend="xla")
     dr, vr = RD.sgbm_disparity(jnp.asarray(left), jnp.asarray(right), cfg)
-    d, v = DP.sgbm_disparity(torch.from_numpy(left), torch.from_numpy(right), cfg)
+    port_cfg = convert.sgbm_config(cfg)
+    d, v = DP.sgbm_disparity(torch.from_numpy(left), torch.from_numpy(right), port_cfg)
     np.testing.assert_array_equal(d.numpy(), np.asarray(dr))
     np.testing.assert_array_equal(v.numpy(), np.asarray(vr))
     assert 0.5 < v.float().mean() < 1.0
     if speckle:  # the filter removed something the unfiltered map kept
         _, v0 = DP.sgbm_disparity(torch.from_numpy(left), torch.from_numpy(right),
-                                  cfg.with_(speckle_window_size=0))
+                                  port_cfg.with_(speckle_window_size=0))
         assert (v0 & ~v).any()
 
 
@@ -171,7 +181,7 @@ def test_cli_reconstruct_on_cpu(tmp_path, capsys):
             "--device", "cpu", "--output", str(out)]
     assert cli.main(argv) == 0
     pts, colors = PLY.read_ply(str(out))
-    from stereo_reconstruction_cv_tpu.io.image import load_stereo_pair
+    from stereo_reconstruction_cv_tpu_torch.io.image import load_stereo_pair
 
     imL, imR = load_stereo_pair(str(pair))
     d = stages.disparity(imL, imR, ndisp=16, device="cpu")
@@ -194,7 +204,14 @@ def test_port_imports_no_jax():
         "import stereo_reconstruction_cv_tpu_torch.ops.disparity, stereo_reconstruction_cv_tpu_torch.ops.rectify\n"
         "import stereo_reconstruction_cv_tpu_torch.pipeline.stages\n"
         "import stereo_reconstruction_cv_tpu_torch.ops.cuda.speckle\n"
+        "import stereo_reconstruction_cv_tpu_torch.ops.cuda.op_chain\n"
+        "import stereo_reconstruction_cv_tpu_torch.io.image, stereo_reconstruction_cv_tpu_torch.io.ply\n"
+        "import stereo_reconstruction_cv_tpu_torch.tools.micro_wta\n"
+        "import stereo_reconstruction_cv_tpu_torch.tools.micro_i16\n"
+        "import stereo_reconstruction_cv_tpu_torch.utils.draw\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "assert 'stereo_reconstruction_cv_tpu' not in sys.modules\n"
+        "assert 'PIL' not in sys.modules\n"
         "print('ok')\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -206,13 +223,17 @@ def test_port_imports_no_jax():
 
 def test_launch_counters_stay_zero_on_cpu():
     left, right = _pair(6)
-    before = {**CK.launches, **SK.launches, **LK.launches, **SPK.launches}
+    before = {**CK.launches, **SK.launches, **LK.launches, **SPK.launches, **OC.launches}
     assert set(SPK.launches) == {"speckle_labels", "speckle_keep"}
     for backend in ("exact", "propagate"):
         DP.compute_disparity_map(torch.from_numpy(left), torch.from_numpy(right), 16, 0,
                                  speckle_backend=backend)
-    SK.sgm_aggregate(torch.zeros((4, 5, 16), dtype=torch.int16), 8, 32)
-    assert {**CK.launches, **SK.launches, **LK.launches, **SPK.launches} == before
+    C = torch.zeros((4, 5, 16), dtype=torch.int16)
+    SK.sgm_aggregate(C, 8, 32)
+    SK.wta_volume(C, [C])
+    SK.wta_packed(C, [C, C])
+    OC.op_chain(torch.ones((2, 32), dtype=torch.int16), ("roll", "add", "min"))
+    assert {**CK.launches, **SK.launches, **LK.launches, **SPK.launches, **OC.launches} == before
     assert all(v == 0 for v in before.values())
 
 
@@ -224,11 +245,62 @@ def test_unported_options_raise():
     assert cfg.speckle_backend == "propagate"
     dr, vr = RD.sgbm_disparity(jnp.asarray(left), jnp.asarray(right), cfg.with_(backend="xla"))
     left, right = torch.from_numpy(left), torch.from_numpy(right)
-    d, v = DP.sgbm_disparity(left, right, cfg)
+    port_cfg = convert.sgbm_config(cfg)
+    d, v = DP.sgbm_disparity(left, right, port_cfg)
     np.testing.assert_array_equal(d.numpy(), np.asarray(dr))
     np.testing.assert_array_equal(v.numpy(), np.asarray(vr))
     assert v.any()
     with pytest.raises(ValueError, match="speckle_backend"):
-        DP.sgbm_disparity(left, right, cfg.with_(speckle_backend="flood"))
+        DP.sgbm_disparity(left, right, port_cfg.with_(speckle_backend="flood"))
     with pytest.raises(ValueError, match="scan_chunk"):
-        DP.sgbm_disparity(left, right, SGBMConfig(num_disparities=16, scan_chunk=64))
+        DP.sgbm_disparity(left, right,
+                          convert.sgbm_config(SGBMConfig(num_disparities=16, scan_chunk=64)))
+
+
+def _imports(path: pathlib.Path):
+    """(line, module) of every import statement in a Python file."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom):
+            yield node.lineno, "." * node.level + (node.module or "")
+
+
+def test_port_and_chip_smoke_import_nothing_of_jax_or_the_reference():
+    files = sorted((ROOT / "stereo_reconstruction_cv_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
+           for f in files for line, mod in _imports(f)
+           if mod.split(".")[0] in ("jax", "jaxlib", "stereo_reconstruction_cv_tpu")
+           or mod.startswith(".")]
+    assert not bad, bad
+
+
+def test_port_sgbm_config_equals_the_reference_field_by_field():
+    ref = SGBMConfig()
+    ours = port_config.SGBMConfig()
+    assert [f.name for f in dataclasses.fields(ours)] == [f.name for f in dataclasses.fields(ref)]
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert convert.sgbm_config(ref) == ours
+    custom = ref.with_(num_disparities=64, num_directions=8, speckle_backend="exact", p2=1000)
+    assert dataclasses.asdict(convert.sgbm_config(custom)) == dataclasses.asdict(custom)
+    assert convert.sgbm_config(custom) == ours.with_(num_disparities=64, num_directions=8,
+                                                     speckle_backend="exact", p2=1000)
+
+
+def test_port_ply_writer_bytes_equal_the_reference(tmp_path):
+    rng = np.random.default_rng(8)
+    pts = rng.normal(size=(57, 3)).astype(np.float32)
+    colors = rng.integers(0, 256, (57, 3), dtype=np.uint8)
+    for c in (None, colors, colors.astype(np.float64) * 1.5):
+        for binary in (True, False):
+            a, b = tmp_path / "ref.ply", tmp_path / "port.ply"
+            assert PLY.write_ply(str(a), pts, c, binary) == port_ply.write_ply(str(b), pts, c, binary)
+            assert a.read_bytes() == b.read_bytes()
+            (p_ref, c_ref), (p, c_port) = PLY.read_ply(str(a)), port_ply.read_ply(str(b))
+            np.testing.assert_array_equal(p, p_ref)
+            assert (c_port is None) == (c_ref is None)
+            if c_ref is not None:
+                np.testing.assert_array_equal(c_port, c_ref)

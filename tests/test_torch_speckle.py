@@ -17,6 +17,7 @@ from stereo_reconstruction_cv_tpu import native as ref_native
 from stereo_reconstruction_cv_tpu.config import SGBMConfig
 from stereo_reconstruction_cv_tpu.ops import disparity as RD
 from stereo_reconstruction_cv_tpu.ops.pallas.speckle_pallas import flood_round_pallas
+from stereo_reconstruction_cv_tpu_torch import convert
 from stereo_reconstruction_cv_tpu_torch.ops import disparity as DP
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import speckle as SPK
 
@@ -211,7 +212,7 @@ def test_speckle_margin_slice_matches_reference():
     valid[:, :x0] = False
     cfg = SGBMConfig(min_disparity=min_disp, num_disparities=num_disp,
                      speckle_window_size=20, speckle_range=int(MAX_DIFF))
-    got = DP._speckle(_t(disp), _t(valid), cfg).numpy()
+    got = DP._speckle(_t(disp), _t(valid), convert.sgbm_config(cfg)).numpy()
     ref = np.asarray(RD._speckle(jnp.asarray(disp), jnp.asarray(valid), cfg))
     np.testing.assert_array_equal(got, ref)
     np.testing.assert_array_equal(got, ref_native.filter_speckles(disp, valid, 20, MAX_DIFF))
