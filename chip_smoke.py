@@ -12,7 +12,9 @@ Phases:
                721x1283 x 96 with min_disp 5: integer maps, masks and the f32
                disparity must be EQUAL; sgm_aggregate (the full S volume) and
                wta_maps(sgm_aggregate(C)) == sgm_wta(C); the speckle labels
-               and keep masks on speckled maps of both sizes; CUDA-event times
+               and keep masks on speckled maps of both sizes; CUDA-event times,
+               each path-sweep direction alone at 720p (its time against its
+               path length tells latency from transfers)
   4. 720p      config 2 as the reference runs it: sgbm_disparity, 128
                disparities, 8 paths, LR check, device speckle (the default
                "propagate"), and the same with the host speckle (equal masks);
@@ -46,7 +48,8 @@ Phases:
                chain's disparity map equals the main path's; the speckle
                labels against the plain flood's fixpoint and the keep mask
                against the host filter on the frame's maps, a speckled random
-               map and a serpentine of 40 turns; kernel times
+               map and a serpentine of 40 turns; kernel times, each
+               path-sweep direction alone
 Each main path of phases 4, 4b and 5 (config 2 with device, host and no
 speckle, the 720p CLI chain, the two tools, the 4K pair -> PLY, config 3's
 chain) runs with the launch counts zeroed just before it and read just after:
@@ -54,10 +57,12 @@ every kernel it should run must have launched in it, and a path with the host
 speckle must launch no speckle kernel. The kernels line sums the paths'
 counts; each kernel's bound there is the larger of its bytes over the card's
 memory rate and its operations over its peak rate (PEAK_BYTES_S,
-PEAK_OPS_S), at the inputs its time was taken on. Prints one JSON line
-of kernel results before the last line, and as the last line
-{"ok": true, "device": {...}}. Exits non-zero, without that line, when a
-phase fails or no CUDA device is present. Imports no JAX.
+PEAK_OPS_S), at the inputs its time was taken on. To compare another
+checkout (the parent commit, say) with this one on the same card, run
+python -m stereo_reconstruction_cv_tpu_torch.tools.compare_smoke OTHER.
+Prints one JSON line of kernel results before the last line, and as the
+last line {"ok": true, "device": {...}}. Exits non-zero, without that line,
+when a phase fails or no CUDA device is present. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -85,7 +90,7 @@ KERNELS = {
     "cost_volume": ("stereo_reconstruction_cv_tpu_torch/csrc/cost_volume.cu",
                     "stereo_reconstruction_cv_tpu/ops/pallas/cost_pallas.py:222"),
     "sgm_path_sweep": ("stereo_reconstruction_cv_tpu_torch/csrc/sgm.cu",
-                       "stereo_reconstruction_cv_tpu/ops/pallas/sgm_pallas.py:563, :617, :840"),
+                       "stereo_reconstruction_cv_tpu/ops/pallas/sgm_pallas.py:563, :263, :671, :617"),
     "sgm_sweep_wta": ("stereo_reconstruction_cv_tpu_torch/csrc/sgm.cu",
                       "stereo_reconstruction_cv_tpu/ops/pallas/sgm_pallas.py:505"),
     "lr_check": ("stereo_reconstruction_cv_tpu_torch/csrc/lr_check.cu",
@@ -361,8 +366,8 @@ def main() -> int:
                 family = next((f for f in ("op_chain_kernel", "wta_kernel")
                                if entry and f in entry), None)
                 if family is None:
-                    if "Used" in line or "spill" in line:
-                        log("  ptxas " + line.strip())
+                    if entry and ("Used" in line or "spill" in line):
+                        log(f"  ptxas {entry[:60]}: {line.strip()}")
                     continue
                 fam = families.setdefault(family, {"instances": 0, "max_registers": 0,
                                                    "spilling": 0})
@@ -388,6 +393,24 @@ def main() -> int:
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain version (max |err| {err})")
+
+    def direction_ms(label, C, dirs):
+        """Each direction's sweep alone (accumulating, as a group's later
+        members do), CUDA events, median of 3: every direction moves the same
+        bytes, so times that follow the longest path's steps say the sweep
+        is latency-bound, equal times that it is bound by its transfers."""
+        H, W, _ = C.shape
+        acc = torch.zeros_like(C)
+        out = {}
+        for dx, dy in dirs:
+            SK.path_sweep_cuda(C, acc, dx, dy, p1, p2, accumulate=True)
+            ms = cuda_ms(lambda: SK.path_sweep_cuda(C, acc, dx, dy, p1, p2, accumulate=True), 3)
+            steps = W if dy == 0 else (H if dx == 0 else min(H, W))
+            paths = H if dy == 0 else (W if dx == 0 else W + H - 1)
+            out[f"{dx},{dy}"] = {"ms": ms, "steps": steps, "paths": paths,
+                                 "us_per_step": 1e3 * ms / steps}
+        log(f"[{label} {H}x{W}x{C.shape[2]}] sgm_path_sweep per direction: " + json.dumps(out))
+        return out
 
     def check_speckle(label, disp, valid, Ts, reps=10, max_diff=SPECKLE_DIFF):
         """Speckle kernels vs the plain flood's fixpoint (which must converge
@@ -469,6 +492,7 @@ def main() -> int:
                 log(f"[{label} {nd}-dir] lr_check: equal; kernel {t_lk:.3f} ms, plain {t_lp:.3f} ms; "
                     f"keep share {keep.float().mean().item():.4f}")
                 if label == "720p" and nd == 8:
+                    direction_ms(label, C, SK.DIRS_8)
                     cells, px = C.numel(), best.numel()
                     # Each launch reads C and writes its u16 volume; all but
                     # a group's first also read the volume: 4 + 6 B per cell.
@@ -874,6 +898,7 @@ def main() -> int:
             partial += ref
             del ref
         del one
+        direction_ms("4K", C, SK.DIRS_5)
         vols = SK.path_deltas_cuda(C, nd, p1, p2)
         note("sgm_path_sweep", max_err(torch, vols[0], partial, fa=SK.u16))
         log(f"[4K {nd}-dir] sgm_path_sweep: each direction and the accumulated group equal")

@@ -136,8 +136,8 @@ def speckle_library() -> ctypes.CDLL:
 
 def _declare_kernels(lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.srcv_cost_volume.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
-    lib.srcv_sgm_path_sweep.argtypes = [P, P, I, I, I, I, I, I, I, I, P]
+    lib.srcv_cost_volume.argtypes = [P] * 5 + [I] * 9 + [P]
+    lib.srcv_sgm_path_sweep.argtypes = [P, P] + [I] * 9 + [P]
     lib.srcv_sgm_sweep_wta.argtypes = [P] * 7 + [I] * 11 + [P]
     lib.srcv_lr_check.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
     lib.srcv_speckle_labels.argtypes = [P, P, P, I, I, ctypes.c_float, P]

@@ -15,15 +15,7 @@
 // reduces S = nd*C + deltas of every direction per pixel to the four WTA maps,
 // so S never reaches device memory.
 //
-// What bounds it on an H100: each sweep streams C (2 B/cell) and reads and
-// writes the u16 delta volume (4 B/cell), about 12 GB per direction at
-// 3840x2160x256 cropped, against a dependent chain of a few dozen integer
-// operations and two warp reductions per step along a path. The paths of one
-// direction are independent, so the chain latency is hidden by running
-// thousands of paths at once, and the next pixel's loads are issued before
-// the current step is computed.
-//
-// Design (the GPU SGM of Hernandez-Juarez et al.): one warp per path line,
+// Numerics (the GPU SGM of Hernandez-Juarez et al.): one warp per path line,
 // the D disparities spread across the 32 lanes, K consecutive disparities per
 // lane in registers, and a loop along the path. Paths start on the image
 // border where the predecessor p - r falls outside, with a zero carry, so
@@ -34,7 +26,24 @@
 // throughout (the TPU kernel's f32 was a VPU workaround). Each pixel meets
 // exactly one path per direction, so no atomics are needed: directions run as
 // sequential launches on one stream.
-
+//
+// What bounds path_sweep_kernel on an H100 (measured, chip_smoke.py's time of
+// each direction alone): a launch streams C (2 B/cell) and reads and writes
+// the u16 delta volume (4 B/cell). The first design loaded a step's C one
+// step ahead and its delta volume in the step itself, 2 bytes per load. At
+// 720p x 128 its time followed the path length (1.3 ms for 1152 steps, 0.87
+// ms for 720, 1.1-1.2 us a step whatever the direction): one DRAM round trip
+// per step. At 4K x 256 all directions took 11.5-12.3 ms whatever the path
+// length, about 1 TB/s: too few bytes in flight per warp.
+//
+// The design now: each lane moves its K disparities as one access (2K bytes:
+// 8 at D = 128, 16 at D = 256) where D % K == 0 and the volumes are aligned,
+// else K scalar accesses (the general path, same kernel body). C and the
+// delta volume are loaded P steps ahead into a ring of registers, so a step
+// waits on no memory: a later pixel's delta can be read early because no
+// other step of this direction writes it. Blocks hold two warps, to spread
+// the few paths of a 720p direction over all SMs. dp_step and the fused
+// sweep_wta_kernel are unchanged.
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -43,7 +52,7 @@ namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int BIG = 1 << 29;  // no-neighbour sentinel; BIG + P1 cannot overflow
-constexpr int WARPS = 4;      // paths (warps) per block
+constexpr int WARPS = 4;      // paths (warps) per block of sweep_wta_kernel
 
 // Start pixel of path i for direction (dx, dy); false past the last path.
 __device__ __forceinline__ bool path_start(int i, int dx, int dy, int H, int W,
@@ -68,16 +77,6 @@ __device__ __forceinline__ bool path_start(int i, int dx, int dy, int H, int W,
     }
   }
   return true;
-}
-
-template <int K>
-__device__ __forceinline__ void load_cost(const int16_t* __restrict__ C, size_t base,
-                                          int lane, int D, int (&c)[K]) {
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int d = lane * K + k;
-    c[k] = d < D ? (int)C[base + d] : 0;
-  }
 }
 
 // One DP step: delta from the carry, then the carry renormalised to
@@ -106,41 +105,156 @@ __device__ __forceinline__ void dp_step(int (&lam)[K], const int (&c)[K],
   for (int k = 0; k < K; ++k) lam[k] = lane * K + k < D ? t[k] - m : BIG;
 }
 
+// Steps of a path from (y, x) along (dx, dy) until it leaves the image.
+__device__ __forceinline__ int path_steps(int y, int x, int dx, int dy, int H, int W) {
+  int n = INT_MAX;
+  if (dx > 0) n = W - x;
+  if (dx < 0) n = x + 1;
+  if (dy > 0) n = min(n, H - y);
+  if (dy < 0) n = min(n, y + 1);
+  return n;
+}
+
+// One lane's K 16-bit values, two to a 32-bit word (the even d in the low half).
 template <int K>
-__global__ void __launch_bounds__(32 * WARPS)
+struct Row {
+  uint32_t w[(K + 1) / 2];
+};
+
+// The lane's K values at p: one access of 2K bytes (VEC; p aligned to
+// min(2K, 16) bytes and all K valid), else K scalar loads of which the first
+// `valid` are read and the rest are 0.
+template <int K, bool VEC>
+__device__ __forceinline__ void load_row(const uint16_t* p, int valid, Row<K>& r) {
+  if constexpr (VEC) {
+    if constexpr (K == 1) {
+      r.w[0] = p[0];
+    } else if constexpr (K == 2) {
+      r.w[0] = *reinterpret_cast<const uint32_t*>(p);
+    } else if constexpr (K == 4) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      r.w[0] = v.x;
+      r.w[1] = v.y;
+    } else {
+#pragma unroll
+      for (int i = 0; i < K / 8; ++i) {
+        const uint4 v = reinterpret_cast<const uint4*>(p)[i];
+        r.w[4 * i] = v.x;
+        r.w[4 * i + 1] = v.y;
+        r.w[4 * i + 2] = v.z;
+        r.w[4 * i + 3] = v.w;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; k += 2) {
+      const uint32_t lo = k < valid ? p[k] : 0u;
+      const uint32_t hi = k + 1 < K && k + 1 < valid ? p[k + 1] : 0u;
+      r.w[k / 2] = lo | (hi << 16);
+    }
+  }
+}
+
+template <int K, bool VEC>
+__device__ __forceinline__ void store_row(uint16_t* p, int valid, const Row<K>& r) {
+  if constexpr (VEC) {
+    if constexpr (K == 1) {
+      p[0] = (uint16_t)r.w[0];
+    } else if constexpr (K == 2) {
+      *reinterpret_cast<uint32_t*>(p) = r.w[0];
+    } else if constexpr (K == 4) {
+      *reinterpret_cast<uint2*>(p) = make_uint2(r.w[0], r.w[1]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < K / 8; ++i) {
+        reinterpret_cast<uint4*>(p)[i] =
+            make_uint4(r.w[4 * i], r.w[4 * i + 1], r.w[4 * i + 2], r.w[4 * i + 3]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (k < valid) p[k] = (uint16_t)(r.w[k / 2] >> (16 * (k & 1)));
+    }
+  }
+}
+
+// Value k of a row: sign-extended (int16 C) or zero-extended (u16 deltas).
+template <int K>
+__device__ __forceinline__ int row_s16(const Row<K>& r, int k) {
+  return k & 1 ? (int)r.w[k / 2] >> 16 : (int)(int16_t)(r.w[k / 2] & 0xffffu);
+}
+template <int K>
+__device__ __forceinline__ uint32_t row_u16(const Row<K>& r, int k) {
+  return k & 1 ? r.w[k / 2] >> 16 : r.w[k / 2] & 0xffffu;
+}
+
+constexpr int SWEEP_WARPS = 2;  // paths (warps) per block of path_sweep_kernel
+
+// Steps loaded ahead: a ring of P rows of C and of the delta volume per lane
+// (2 * P * ceil(K/2) registers).
+template <int K>
+constexpr int RING_STEPS = K <= 2 ? 16 : (K <= 8 ? 8 : 4);
+
+template <int K, bool VEC>
+__global__ void __launch_bounds__(32 * SWEEP_WARPS)
 path_sweep_kernel(const int16_t* __restrict__ C, uint16_t* __restrict__ acc,
                   int H, int W, int D, int dx, int dy, int P1, int P2,
                   int accumulate) {
+  constexpr int P = RING_STEPS<K>;
   const int lane = threadIdx.x & 31;
   int y, x;
-  if (!path_start(blockIdx.x * WARPS + (threadIdx.x >> 5), dx, dy, H, W, y, x)) return;
-  int lam[K], c[K], cn[K], delta[K];
+  if (!path_start(blockIdx.x * SWEEP_WARPS + (threadIdx.x >> 5), dx, dy, H, W, y, x)) return;
+  const int n = path_steps(y, x, dx, dy, H, W);
+  const long long step = ((long long)dy * W + dx) * D;  // elements per path step
+  const size_t first = ((size_t)y * W + x) * D + (size_t)lane * K;
+  const uint16_t* cp = reinterpret_cast<const uint16_t*>(C) + first;
+  uint16_t* ap = acc + first;
+  const int valid = D - lane * K;  // with VEC, either <= 0 or >= K
+  const bool active = valid > 0;
+
+  Row<K> cr[P], ar[P];
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    lam[k] = lane * K + k < D ? 0 : BIG;
-    cn[k] = 0;
+  for (int j = 0; j < P; ++j) {
+#pragma unroll
+    for (int i = 0; i < (K + 1) / 2; ++i) {
+      cr[j].w[i] = 0;
+      ar[j].w[i] = 0;
+    }
+    if (active && j < n) {
+      load_row<K, VEC>(cp + j * step, valid, cr[j]);
+      if (accumulate) load_row<K, VEC>(ap + j * step, valid, ar[j]);
+    }
   }
-  load_cost<K>(C, ((size_t)y * W + x) * D, lane, D, c);
-  while (true) {
-    const size_t base = ((size_t)y * W + x) * D;
-    const int ny = y + dy, nx = x + dx;
-    const bool more = ny >= 0 && ny < H && nx >= 0 && nx < W;
-    if (more) load_cost<K>(C, ((size_t)ny * W + nx) * D, lane, D, cn);
-    dp_step<K>(lam, c, delta, lane, D, P1, P2);
+  int lam[K];
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int d = lane * K + k;
-      if (d < D) {
-        unsigned v = (unsigned)delta[k];
-        if (accumulate) v += acc[base + d];
-        acc[base + d] = (uint16_t)v;
+  for (int k = 0; k < K; ++k) lam[k] = lane * K + k < D ? 0 : BIG;
+
+  for (int s0 = 0; s0 < n; s0 += P) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int s = s0 + j;
+      if (s >= n) break;
+      int c[K], delta[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) c[k] = row_s16<K>(cr[j], k);
+      dp_step<K>(lam, c, delta, lane, D, P1, P2);
+      if (active) {
+        Row<K> out;
+#pragma unroll
+        for (int k = 0; k < K; k += 2) {
+          const uint32_t lo = (uint32_t)delta[k] + (accumulate ? row_u16<K>(ar[j], k) : 0u);
+          const uint32_t hi = k + 1 < K
+              ? (uint32_t)delta[k + 1] + (accumulate ? row_u16<K>(ar[j], k + 1) : 0u) : 0u;
+          out.w[k / 2] = __byte_perm(lo, hi, 0x5410);
+        }
+        store_row<K, VEC>(ap + s * step, valid, out);
+        if (s + P < n) {
+          load_row<K, VEC>(cp + (s + P) * step, valid, cr[j]);
+          if (accumulate) load_row<K, VEC>(ap + (s + P) * step, valid, ar[j]);
+        }
       }
     }
-    if (!more) break;
-    y = ny;
-    x = nx;
-#pragma unroll
-    for (int k = 0; k < K; ++k) c[k] = cn[k];
   }
 }
 
@@ -259,10 +373,19 @@ int lanes_k(int D) {
 
 template <int K>
 int launch_sweep(const void* C, void* acc, int H, int W, int D, int dx, int dy,
-                 int P1, int P2, int accumulate, cudaStream_t stream) {
-  const int blocks = (num_paths(dx, dy, H, W) + WARPS - 1) / WARPS;
-  path_sweep_kernel<K><<<blocks, 32 * WARPS, 0, stream>>>(
-      (const int16_t*)C, (uint16_t*)acc, H, W, D, dx, dy, P1, P2, accumulate);
+                 int P1, int P2, int accumulate, int vec, cudaStream_t stream) {
+  const int blocks = (num_paths(dx, dy, H, W) + SWEEP_WARPS - 1) / SWEEP_WARPS;
+  const unsigned align = K >= 8 ? 16u : 2u * K;
+  if (vec && (D % K != 0 || ((uintptr_t)C | (uintptr_t)acc) % align != 0)) {
+    return (int)cudaErrorInvalidValue;  // the caller asked for a layout it lacks
+  }
+  if (vec) {
+    path_sweep_kernel<K, true><<<blocks, 32 * SWEEP_WARPS, 0, stream>>>(
+        (const int16_t*)C, (uint16_t*)acc, H, W, D, dx, dy, P1, P2, accumulate);
+  } else {
+    path_sweep_kernel<K, false><<<blocks, 32 * SWEEP_WARPS, 0, stream>>>(
+        (const int16_t*)C, (uint16_t*)acc, H, W, D, dx, dy, P1, P2, accumulate);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -284,18 +407,24 @@ int launch_wta(const void* C, const void* dsa, const void* dsb, void* disp,
 extern "C" {
 
 // C: (H, W, D) int16; acc: (H, W, D) u16, written (accumulate = 0) or added
-// onto (accumulate = 1). D <= 512.
+// onto (accumulate = 1). D <= 512. vec = 1: one access of 2K bytes per lane,
+// which needs D % K == 0 and both pointers aligned to min(2K, 16) bytes
+// (ops/cuda/sgm.py:sweep_vector_path); vec = 0: K scalar accesses.
 int srcv_sgm_path_sweep(const void* C, void* acc, int H, int W, int D, int dx,
-                        int dy, int P1, int P2, int accumulate, void* stream) {
+                        int dy, int P1, int P2, int accumulate, int vec,
+                        void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+#define SRCV_SWEEP(KK) \
+  return launch_sweep<KK>(C, acc, H, W, D, dx, dy, P1, P2, accumulate, vec, s)
   switch (lanes_k(D)) {
-    case 1: return launch_sweep<1>(C, acc, H, W, D, dx, dy, P1, P2, accumulate, s);
-    case 2: return launch_sweep<2>(C, acc, H, W, D, dx, dy, P1, P2, accumulate, s);
-    case 4: return launch_sweep<4>(C, acc, H, W, D, dx, dy, P1, P2, accumulate, s);
-    case 8: return launch_sweep<8>(C, acc, H, W, D, dx, dy, P1, P2, accumulate, s);
-    case 16: return launch_sweep<16>(C, acc, H, W, D, dx, dy, P1, P2, accumulate, s);
+    case 1: SRCV_SWEEP(1);
+    case 2: SRCV_SWEEP(2);
+    case 4: SRCV_SWEEP(4);
+    case 8: SRCV_SWEEP(8);
+    case 16: SRCV_SWEEP(16);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef SRCV_SWEEP
 }
 
 // Last direction fused with WTA. dsa, dsb: u16 delta volumes of the other

@@ -107,6 +107,52 @@ def cost_volume_plain(sl, sr, rawl, rawr, num_disp: int, min_disp: int = 0,
     return block_sum(C[:, x0:, :], block_size)
 
 
+# Shared memory of one block of csrc/cost_volume.cu: what an H100 block may
+# use, and the share above which a tile halves its disparities so that
+# several blocks fit on one SM.
+_SMEM_MAX = 232448
+_SMEM_TARGET = 100 * 1024
+
+
+def cost_smem_bytes(block_size: int, groups: int, cols: int) -> int:
+    """Shared memory of one cost block (csrc/cost_volume.cu smem_bytes), 16
+    bytes an entry: two buffers of both planes' triples of `cols` left and
+    cols + 8*groups - 1 right columns, two buffers of the vertical sums per
+    (column + 1, group), and a ring of block_size rows of pixel costs per
+    (column, group)."""
+    staged = 2 * cols + 8 * groups - 1
+    return 16 * (4 * staged + 2 * groups * (cols + 1) + block_size * cols * groups)
+
+
+def cost_tile(block_size: int, num_disp: int, height: int):
+    """(groups of 8 disparities, staged columns NC, output rows per band) of
+    one cost block.
+
+    NC is a multiple of 32 that leaves at least 32 output columns
+    (NC - block_size + 1); groups start at 4 (fewer for small D) and halve
+    while the block's shared memory exceeds 100 KB; a box too tall for even
+    that stages block_size + 7 columns. Bands are 128 rows from 1024 rows up
+    (fewer halo rows per output row) and 64 below, where taller bands leave
+    too few blocks to fill the card. Raises where no tile fits."""
+    groups = min(4, -(-num_disp // 8))
+    cols = 32 * (-(-(block_size + 31) // 32))
+    while groups > 1 and cost_smem_bytes(block_size, groups, cols) > _SMEM_TARGET:
+        groups //= 2
+    if cost_smem_bytes(block_size, groups, cols) > _SMEM_MAX:
+        cols = block_size + 7
+    if cost_smem_bytes(block_size, groups, cols) > _SMEM_MAX:
+        raise ValueError(f"block_size={block_size}: the cost kernel's ring of "
+                         f"{block_size} rows exceeds a block's shared memory")
+    return groups, cols, 128 if height >= 1024 else 64
+
+
+def cost_vector_store(num_disp: int, out_ptr: int) -> bool:
+    """Whether the cost kernel writes 8 disparities as one 16-byte store:
+    D % 8 == 0 and a 16-byte aligned output. Otherwise it stores them one
+    by one, masked at D."""
+    return num_disp % 8 == 0 and out_ptr % 16 == 0
+
+
 def cost_volume(sl, sr, rawl, rawr, num_disp: int, min_disp: int = 0,
                 block_size: int = 11) -> torch.Tensor:
     """Fused BT cost + box sum over the cropped columns -> (H, Wc, D) int16.
@@ -126,14 +172,16 @@ def cost_volume(sl, sr, rawl, rawr, num_disp: int, min_disp: int = 0,
         return cost_volume_plain(sl, sr, rawl, rawr, num_disp, min_disp, block_size)
     if sl.device.type != "cuda":
         raise ValueError(f"cost_volume: unsupported device {sl.device}")
+    groups, cols, rows = cost_tile(block_size, num_disp, H)
     planes = [p.to(torch.int32).contiguous() for p in planes]
     out = torch.empty((H, W - x0, num_disp), dtype=torch.int16, device=sl.device)
+    vec = cost_vector_store(num_disp, out.data_ptr())
     lib = _build.kernels_library()
     with torch.cuda.device(sl.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.srcv_cost_volume(
             *(p.data_ptr() for p in planes), out.data_ptr(),
-            H, W, num_disp, min_disp, block_size, stream,
+            H, W, num_disp, min_disp, block_size, groups, cols, rows, int(vec), stream,
         )
     _build.check(lib, err, "cost_volume")
     _build.count(launches, "cost_volume")

@@ -209,6 +209,21 @@ def _require_cuda_cost(C: torch.Tensor) -> None:
         raise ValueError("C must be a contiguous (H, W, D) int16 CUDA tensor")
 
 
+def lanes_k(num_disp: int) -> int:
+    """Disparities per lane of a path-sweep warp: the smallest power of two
+    K with 32*K >= D (csrc/sgm.cu lanes_k)."""
+    return max(1, _pow2_at_least(-(-num_disp // 32)))
+
+
+def sweep_vector_path(num_disp: int, *ptrs: int) -> bool:
+    """Whether the path sweep moves each lane's K disparities as one access
+    of 2K bytes: D % K == 0 and every pointer aligned to min(2K, 16) bytes.
+    Otherwise the same kernel takes K scalar accesses."""
+    k = lanes_k(num_disp)
+    align = min(2 * k, 16)
+    return num_disp % k == 0 and all(p % align == 0 for p in ptrs)
+
+
 def path_sweep_cuda(C: torch.Tensor, acc: torch.Tensor, dx: int, dy: int,
                     p1: int, p2: int, accumulate: bool) -> None:
     """Kernel: one direction's deltas written (or added) onto acc in place."""
@@ -216,11 +231,12 @@ def path_sweep_cuda(C: torch.Tensor, acc: torch.Tensor, dx: int, dy: int,
     if acc.shape != C.shape or acc.dtype != torch.int16 or not acc.is_contiguous():
         raise ValueError("acc must be a contiguous int16 tensor of C's shape")
     H, W, D = C.shape
+    vec = sweep_vector_path(D, C.data_ptr(), acc.data_ptr())
     lib = _build.kernels_library()
     with torch.cuda.device(C.device):
         err = lib.srcv_sgm_path_sweep(
             C.data_ptr(), acc.data_ptr(), H, W, D, dx, dy, p1, p2, int(accumulate),
-            torch.cuda.current_stream().cuda_stream,
+            int(vec), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "sgm_path_sweep")
     _build.count(launches, "sgm_path_sweep")

@@ -1,0 +1,59 @@
+"""The parent/new comparison tool's log reader, on lines as chip_smoke.py
+prints them (the runs themselves need a card)."""
+
+import json
+
+import pytest
+
+from stereo_reconstruction_cv_tpu_torch.tools import compare_smoke as CS
+
+LOG = "\n".join([
+    "nvidia-smi: NVIDIA H100 80GB HBM3, 700.00 W",
+    "built CUDA kernels in 31.8 s, host speckle in 1.2 s",
+    "[720p 720x1280x128 md=0] cost_volume: equal; kernel 2.372 ms, plain 16.393 ms",
+    "[720p 8-dir] sgm_path_sweep x7: equal; kernel 5.329 ms, plain 632.056 ms",
+    '[720p 720x1152x128] sgm_path_sweep per direction: {"1,0": {"ms": 1.5, "steps": 1152, '
+    '"paths": 720, "us_per_step": 1.3}}',
+    "[720p 8-dir] sgm_sweep_wta: equal (disp, valid, best, minS); kernel 1.222 ms, plain 9 ms; "
+    "valid share 1.0",
+    "sgbm_disparity 720p x128 8-dir (device speckle): s/pair first 0.01, warm [0.0096] "
+    "(warm median 0.0096 s, 95.2 MPix/s); valid 1.0000",
+    "4K device chain 3840x2160 x256 5-dir: s/pair first (cold) 0.085, warm [0.086] "
+    "(warm median 0.0861 s, 96.3 MPix/s); masked point sum 1.0",
+    '4K disparity breakdown (ms): {"cost_volume": 27.6, "sgm_path_sweep x4": 38.65}',
+    json.dumps({"kernels": [{"name": "cost_volume", "ms": 2.37}]}),
+    "NVIDIA H100 80GB HBM3, 700.00 W",
+    '{"ok": true, "device": {"platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}}',
+])
+
+
+def test_parse_reads_every_number():
+    got = CS.parse(LOG)
+    assert got == {
+        "card": "NVIDIA H100 80GB HBM3, 700.00 W",
+        "build s": 31.8,
+        "cost_volume 720p ms": 2.372,
+        "sgm_path_sweep x7 720p ms": 5.329,
+        "sgm_path_sweep 720p (1,0) ms": 1.5,
+        "sgm_sweep_wta 720p 8-dir ms": 1.222,
+        "config 2 s/pair": 0.0096,
+        "config 3 s/pair": 0.0861,
+        "4K cost_volume ms": 27.6,
+        "4K sgm_path_sweep x4 ms": 38.65,
+        "kernels line cost_volume ms": 2.37,
+    }
+
+
+@pytest.mark.parametrize("drop", ["nvidia-smi: ", "[720p 8-dir] sgm_path_sweep x7"])
+def test_parse_falls_back_or_omits(drop):
+    """A log cut at its head still names the card (the line before the last),
+    and a missing line leaves its key out."""
+    log = "\n".join(line for line in LOG.splitlines() if not line.startswith(drop))
+    got = CS.parse(log)
+    assert got["card"] == "NVIDIA H100 80GB HBM3, 700.00 W"
+    assert ("sgm_path_sweep x7 720p ms" in got) == (drop == "nvidia-smi: ")
+
+
+def test_main_refuses_a_tree_without_chip_smoke(tmp_path, capsys):
+    assert CS.main([str(tmp_path), "--out", str(tmp_path / "out")]) == 2
+    assert "no chip_smoke.py" in capsys.readouterr().out

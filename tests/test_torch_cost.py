@@ -92,3 +92,32 @@ def test_cost_volume_matches_pallas_interpret(D, min_disp):
     ref = cost_volume_pallas(*map(jnp.asarray, planes), D, min_disp, interpret=True)
     got = CK.cost_volume(*map(torch.from_numpy, planes), D, min_disp, 11)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("block", [1, 3, 4, 5, 11, 21, 22, 33, 64, 103])
+@pytest.mark.parametrize("D", [1, 17, 96, 256])
+def test_cost_tile_fits_and_covers(block, D):
+    """Every tile leaves output columns, fits a block's shared memory, and
+    keeps its blocks small enough to share an SM wherever the ring allows."""
+    groups, cols, rows = CK.cost_tile(block, D, 720)
+    assert rows == 64 and CK.cost_tile(block, D, 2160) == (groups, cols, 128)
+    assert 1 <= groups <= 4 and 8 * (groups - 1) < max(D, 8)
+    assert cols >= block + 7
+    smem = CK.cost_smem_bytes(block, groups, cols)
+    assert smem <= 232448
+    if block <= 22:
+        assert cols % 32 == 0 and cols - block + 1 >= 32 and smem <= 100 * 1024
+
+
+def test_cost_smem_bytes_counts_each_buffer():
+    # 11 x 64 columns x 4 groups: triples 2 x 2 x (64 + 95), vertical sums
+    # 2 x 4 x 65, ring 11 x 256
+    assert CK.cost_smem_bytes(11, 4, 64) == 16 * (636 + 520 + 2816)
+    with pytest.raises(ValueError, match="shared memory"):
+        CK.cost_tile(200, 128, 720)
+
+
+@pytest.mark.parametrize("D,ptr,vec", [(128, 0, True), (128, 8, False), (96, 16, True),
+                                       (100, 0, False), (17, 0, False), (1, 0, False)])
+def test_cost_vector_store_choice(D, ptr, vec):
+    assert CK.cost_vector_store(D, ptr) is vec

@@ -6,8 +6,10 @@ with a card (and no JAX) run them with
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
 Shapes are small and ragged on purpose (D not a multiple of 32, one-lane D,
-min_disp > 0, a 5x5 block, single-column crops); chip_smoke.py checks the
-full-size shapes of the main path.
+min_disp > 0, even and odd blocks, crops and row counts that are no multiple
+of the cost kernel's tile, single pixels, rows and columns, long diagonals,
+unaligned volumes); chip_smoke.py checks the full-size shapes of the main
+path.
 """
 
 import numpy as np
@@ -55,6 +57,71 @@ def test_cost_volume_kernel_equals_plain(dev, H, W, D, md, block):
     ref = CK.cost_volume_plain(*planes, D, md, block)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("H", [9, 70])  # one row band short of 64 rows, and two
+@pytest.mark.parametrize("block", [1, 4, 5, 11])
+@pytest.mark.parametrize("D", [1, 17, 96, 100, 256])
+def test_cost_volume_tiles_and_edges_equal_plain(dev, H, block, D):
+    """Cropped width 131: no multiple of any tile's columns (32, 54, 60, 61);
+    D % 8 != 0 takes the masked scalar stores."""
+    md = 3
+    planes = _planes(H + block + D, H, md + D + 131, dev)
+    got = CK.cost_volume(*planes, D, md, block)
+    ref = CK.cost_volume_plain(*planes, D, md, block)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def _sweep_all_directions(C, start, p1=P1, p2=P2):
+    """Each direction of DIRS_8 written onto a copy of `start` and added onto
+    another, against the plain deltas (u16 sums)."""
+    C32 = C.to(torch.int32)
+    for dx, dy in SK.DIRS_8:
+        ref = SK.path_delta_plain(C32, dx, dy, p1, p2)
+        for accumulate in (False, True):
+            acc = start.clone()
+            SK.path_sweep_cuda(C, acc, dx, dy, p1, p2, accumulate=accumulate)
+            torch.cuda.synchronize()
+            want = ((SK.u16(start) if accumulate else 0) + ref) & 0xFFFF
+            assert torch.equal(SK.u16(acc), want), (dx, dy, accumulate)
+
+
+@pytest.mark.parametrize("D", [1, 17, 33, 100, 256, 512])
+@pytest.mark.parametrize("H,W", [(1, 1), (1, 40), (40, 1), (4, 300), (300, 4), (23, 37)])
+def test_path_sweep_shapes_equal_plain(dev, D, H, W):
+    """Single pixels, single rows and columns, long diagonals both ways;
+    D % K != 0 (17, 33) takes the scalar accesses, the rest the vector ones."""
+    rng = np.random.default_rng(D * 1000 + H * W)
+    C = torch.from_numpy(rng.integers(0, 20000, (H, W, D), dtype=np.int16)).to(dev)
+    start = torch.from_numpy(rng.integers(0, 1 << 16, (H, W, D)).astype(np.uint16).view(np.int16)).to(dev)
+    _sweep_all_directions(C, start)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256, 512])
+def test_path_sweep_unaligned_takes_the_scalar_path(dev, D):
+    """Volumes that start 2 bytes past an aligned address: D % K == 0 but no
+    vector access, the same kernel's scalar path."""
+    H, W = 13, 29
+    rng = np.random.default_rng(D)
+    n = H * W * D
+    cbuf = torch.from_numpy(rng.integers(0, 20000, n + 1, dtype=np.int16)).to(dev)
+    sbuf = torch.from_numpy(rng.integers(0, 1 << 16, n + 1).astype(np.uint16).view(np.int16)).to(dev)
+    C, start = cbuf[1:].view(H, W, D), sbuf[1:].view(H, W, D)
+    assert not SK.sweep_vector_path(D, C.data_ptr(), start.data_ptr())
+    _sweep_all_directions(C, start)
+
+
+@pytest.mark.parametrize("D", [1, 17, 33, 100, 256, 512])
+@pytest.mark.parametrize("H,W", [(1, 1), (1, 40), (40, 1), (4, 90), (90, 4)])
+def test_sgm_aggregate_shapes_equal_plain(dev, D, H, W):
+    rng = np.random.default_rng(D + H)
+    C = torch.from_numpy(rng.integers(0, 20000, (H, W, D), dtype=np.int16)).to(dev)
+    for nd in (5, 8):
+        dirs = SK.directions_for(nd)
+        S = SK.sgm_aggregate(C, P1, P2, dirs)
+        torch.cuda.synchronize()
+        assert torch.equal(S, SK.sgm_aggregate_plain(C, P1, P2, dirs))
 
 
 @pytest.mark.parametrize("nd", [5, 8])

@@ -104,3 +104,26 @@ def test_bounds_and_cpu_dispatch():
     before = dict(SK.launches)
     SK.sgm_wta(C, P1, P2, 8, 10, 0)
     assert SK.launches == before
+
+
+@pytest.mark.parametrize("D,k", [(1, 1), (17, 1), (32, 1), (33, 2), (64, 2), (100, 4),
+                                 (128, 4), (129, 8), (256, 8), (257, 16), (512, 16)])
+def test_lanes_k_covers_d_with_32_lanes(D, k):
+    assert SK.lanes_k(D) == k
+    assert 32 * k >= D and (k == 1 or 16 * k < D)
+
+
+@pytest.mark.parametrize("D,ptrs,vec", [
+    (128, (0, 4096), True),       # K = 4: 8-byte accesses
+    (128, (2, 4096), False),      # C 2 bytes off an 8-byte boundary
+    (128, (8, 4104), True),
+    (256, (16, 32), True),        # K = 8: 16-byte accesses
+    (256, (8, 32), False),
+    (512, (16, 48), True),        # K = 16: two 16-byte accesses, 16-byte aligned
+    (100, (0, 0), True),          # 100 = 25 lanes x 4
+    (33, (0, 0), False),          # K = 2, 33 % 2 != 0
+    (17, (2, 6), True),           # K = 1: every int16 is aligned
+    (1, (2, 6), True),
+])
+def test_sweep_vector_path_choice(D, ptrs, vec):
+    assert SK.sweep_vector_path(D, *ptrs) is vec
