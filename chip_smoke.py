@@ -14,10 +14,15 @@ Phases:
                wta_maps(sgm_aggregate(C)) == sgm_wta(C); the speckle labels
                and keep masks on speckled maps of both sizes; CUDA-event times,
                each path-sweep direction alone at 720p (its time against its
-               path length tells latency from transfers)
+               path length tells latency from transfers), and config 2's
+               sweeps + fused sweep with each of sgm.py's FUSED_CANDIDATES last
   4. 720p      config 2 as the reference runs it: sgbm_disparity, 128
                disparities, 8 paths, LR check, device speckle (the default
                "propagate"), and the same with the host speckle (equal masks);
+               the speckle kernels on config 2's own map as the main path
+               hands it to them (equal to the plain fixpoint and the host
+               filter; their times go to the kernels line, the label
+               kernel's three launches apart by torch.profiler);
                the CLI's chain disparity -> reconstruct -> PLY; synthetic pair
                with a known shift
   4b. tools    the two tool entry points, micro_wta (every variant at 4K x 128)
@@ -44,7 +49,9 @@ Phases:
   6. 4K plain  on that frame's rectified pair, each kernel against its plain
                version at D = 256 (cost in row bands with the box halo, each
                path direction alone and as the accumulated group, the fused
-               sweep + WTA in row bands, the LR check), all EQUAL; the plain
+               sweep + WTA in bands its path does not cross, the LR check),
+               all EQUAL; config 3's sweeps + fused sweep with each of
+               FUSED_CANDIDATES last (equal maps, times); the plain
                chain's disparity map equals the main path's; the speckle
                labels against the plain flood's fixpoint and the keep mask
                against the host filter on the frame's maps, a speckled random
@@ -147,15 +154,6 @@ SPECKLE_DIFF = 5.0  # max_diff of the synthetic speckle maps
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def textured_pair(rng, H: int, W: int, shift: int):
-    """uint8 (H, W) pair with left[y, x] == right[y, x - shift]: smoothed
-    noise (3x3 box) so bilinear resampling keeps it matchable."""
-    n = rng.uniform(0, 255, size=(H + 2, W + shift + 2)).astype(np.float32)
-    base = sum(n[i:i + H, j:j + W + shift] for i in range(3) for j in range(3)) / 9.0
-    base = np.clip((base - base.mean()) * 3.0 + 128.0, 0, 255).astype(np.uint8)
-    return base[:, :W].copy(), base[:, shift:].copy()
 
 
 def speckled_map(rng, H: int, W: int, p_invalid: float = 0.4, block: int = 1):
@@ -297,7 +295,8 @@ def main() -> int:
         from stereo_reconstruction_cv_tpu_torch.ops.cuda import speckle as SPK
         from stereo_reconstruction_cv_tpu_torch.pipeline import stages
         from stereo_reconstruction_cv_tpu_torch.tools import micro_i16, micro_wta
-        from stereo_reconstruction_cv_tpu_torch.utils.timing import cuda_ms, graph_ms, launch_ms
+        from stereo_reconstruction_cv_tpu_torch.tools.probe_sweep import textured_pair
+        from stereo_reconstruction_cv_tpu_torch.utils.timing import cuda_ms, graph_ms, kernel_ms, launch_ms
     except ImportError as e:
         log(f"FAIL import: {e} (run from the root of a checkout of the repository)")
         return 1
@@ -352,7 +351,8 @@ def main() -> int:
         t2 = time.perf_counter()
         log(f"built CUDA kernels in {t1 - t0:.1f} s, host speckle in {t2 - t1:.1f} s")
         # ptxas's report: line by line for the main paths' kernels, one
-        # summary for each family of template instances of the tools' kernels.
+        # summary for each family of template instances (the tools' kernels,
+        # and the fused sweep + WTA's K x vector x volume instances).
         families = {}
         for logf in sorted(_build.BUILD_DIR.glob("libsrcv_kernels-*.log")):
             entry = None
@@ -363,7 +363,7 @@ def main() -> int:
                 if m:
                     entry = m.group(1)
                     continue
-                family = next((f for f in ("op_chain_kernel", "wta_kernel")
+                family = next((f for f in ("op_chain_kernel", "sweep_wta_kernel", "wta_kernel")
                                if entry and f in entry), None)
                 if family is None:
                     if entry and ("Used" in line or "spill" in line):
@@ -416,7 +416,8 @@ def main() -> int:
         """Speckle kernels vs the plain flood's fixpoint (which must converge
         within its max_rounds) and its bincount keep, for each T; times of
         both at Ts[-1], the kernels' by graph replay (device only), the plain
-        versions' by CUDA events. -> (labels ms, plain, keep ms, plain)."""
+        versions' by CUDA events, and the label kernel's three launches
+        apart (kernel_ms). -> (labels ms, plain, keep ms, plain)."""
         labels = SPK.speckle_labels_cuda(disp, valid, max_diff)
         ref, converged = SPK.speckle_labels_plain(disp, valid, max_diff)
         if not converged:
@@ -436,7 +437,26 @@ def main() -> int:
             f"{int(valid.sum().item())} valid pixels in {int(torch.unique(labels[valid]).numel())} components")
         log(f"[{label}] speckle_keep: equal for T in {list(Ts)}; kernel {times[2]:.3f} ms, "
             f"plain {times[3]:.3f} ms; keep share at T={T} {keep.float().mean().item():.4f}")
+        log(f"[{label}] speckle_labels launches (ms, profiler): "
+            + json.dumps(kernel_ms(lambda: SPK.speckle_labels_cuda(disp, valid, max_diff))))
         return times
+
+    def fused_candidates(label, C, nd, md, maps):
+        """sgm_sweep_wta with each of SK.FUSED_CANDIDATES last, each with its
+        path sweeps (CUDA events, median of 3); every candidate's maps must
+        equal `maps`, since S does not depend on the order."""
+        out = {}
+        for fd in SK.FUSED_CANDIDATES:
+            vols = SK.path_deltas_cuda(C, nd, p1, p2, fused=fd)
+            got = SK.sweep_wta_cuda(C, vols, nd, p1, p2, ur, md, fd)
+            note("sgm_sweep_wta", max(max_err(torch, a, b) for a, b in zip(got, maps)))
+            t_s = cuda_ms(lambda: SK.path_deltas_cuda(C, nd, p1, p2, fused=fd), 3)
+            t_w = cuda_ms(lambda: SK.sweep_wta_cuda(C, vols, nd, p1, p2, ur, md, fd), 3)
+            out[f"{fd[0]},{fd[1]}"] = {"sweeps_ms": t_s, "sweep_wta_ms": t_w, "sum_ms": t_s + t_w}
+            del vols, got
+        H, W, D = C.shape
+        log(f"[{label} {H}x{W}x{D} {nd}-dir] fused direction candidates, equal maps "
+            f"(FUSED_DIR {SK.FUSED_DIR[0]},{SK.FUSED_DIR[1]}): " + json.dumps(out))
 
     @phase("3 kernels vs plain")
     def _():
@@ -493,6 +513,7 @@ def main() -> int:
                     f"keep share {keep.float().mean().item():.4f}")
                 if label == "720p" and nd == 8:
                     direction_ms(label, C, SK.DIRS_8)
+                    fused_candidates(label, C, nd, md, got)
                     cells, px = C.numel(), best.numel()
                     # Each launch reads C and writes its u16 volume; all but
                     # a group's first also read the volume: 4 + 6 B per cell.
@@ -528,16 +549,10 @@ def main() -> int:
             del C
             torch.cuda.empty_cache()
             disp_np, valid_np = speckled_map(rng, H, W)
-            times = check_speckle(label, torch.from_numpy(disp_np).to(dev),
-                                  torch.from_numpy(valid_np).to(dev), (20, 100))
-            if label == "720p":
-                px = disp_np.size
-                results["speckle_labels"].update(
-                    ms=times[0], plain_ms=times[1],
-                    **bound(9 * px, OPS_PER["speckle_labels"] * px))
-                results["speckle_keep"].update(
-                    ms=times[2], plain_ms=times[3],
-                    **bound(6 * px, OPS_PER["speckle_keep"] * px))
+            # Many small components; the kernels line times the speckle
+            # kernels on config 2's own map (phase 4), nearly one component.
+            check_speckle(label + " speckled", torch.from_numpy(disp_np).to(dev),
+                          torch.from_numpy(valid_np).to(dev), (20, 100))
 
     # The main paths (phases 4 and 5): each runs with every launch count set
     # to 0 just before it and read just after, so each shows its own
@@ -619,6 +634,22 @@ def main() -> int:
         with main_path("720p config 2 (no speckle)", dense, speckle):
             profile_idle(torch, "720p sgbm_disparity x128 8-dir (no speckle)",
                          lambda: DP.sgbm_disparity(l, r, cfg.with_(speckle_window_size=0)))
+        # The speckle kernels on config 2's own map, as the main path hands it
+        # to them (LR-checked, the left margin sliced off, no copy): equal to
+        # the plain fixpoint and the host filter, and timed for the kernels line.
+        d2, v2 = DP.sgbm_disparity(l, r, cfg.with_(speckle_window_size=0))
+        x0 = cfg.min_disparity + cfg.num_disparities
+        d2, v2 = d2[:, x0:], v2[:, x0:]
+        T2, diff2 = cfg.speckle_window_size, float(cfg.speckle_range)
+        times = check_speckle("720p frame", d2, v2, (20, T2), max_diff=diff2)
+        if not torch.equal(SPK.speckle_filter(d2, v2, T2, diff2),
+                           DP.filter_speckles_host(d2, v2, T2, diff2)):
+            raise AssertionError("720p frame: the speckle kernels' mask differs from the host filter's")
+        px = d2.numel()
+        results["speckle_labels"].update(ms=times[0], plain_ms=times[1],
+                                         **bound(9 * px, OPS_PER["speckle_labels"] * px))
+        results["speckle_keep"].update(ms=times[2], plain_ms=times[3],
+                                       **bound(6 * px, OPS_PER["speckle_keep"] * px))
         Kt, res = rig(W, H, 0.0)
         with tempfile.TemporaryDirectory() as td, \
                 main_path("720p CLI chain (host speckle)", dense, speckle):
@@ -902,15 +933,24 @@ def main() -> int:
         vols = SK.path_deltas_cuda(C, nd, p1, p2)
         note("sgm_path_sweep", max_err(torch, vols[0], partial, fa=SK.u16))
         log(f"[4K {nd}-dir] sgm_path_sweep: each direction and the accumulated group equal")
-        # Fused last sweep + WTA: its path is horizontal, so row bands are exact.
+        # Fused last sweep + WTA, in bands its path does not cross: rows for
+        # a horizontal FUSED_DIR, columns for a vertical one.
+        fdx, fdy = SK.FUSED_DIR
+        if fdx and fdy:
+            raise AssertionError(f"no exact bands for a diagonal FUSED_DIR {SK.FUSED_DIR}")
+        axis, band = (0, 540) if fdy == 0 else (1, 896)
         maps = SK.sweep_wta_cuda(C, vols, nd, p1, p2, ur, md)
-        parts = [SK.sweep_wta_plain(C32[y0:y0 + 540], partial[y0:y0 + 540], nd, p1, p2, ur, md)
-                 for y0 in range(0, H, 540)]
-        maps_p = [torch.cat([p[k] for p in parts]) for k in range(4)]
+        n_ax = C.shape[axis]
+        parts = [SK.sweep_wta_plain(C32.narrow(axis, a, min(band, n_ax - a)),
+                                    partial.narrow(axis, a, min(band, n_ax - a)), nd, p1, p2, ur, md)
+                 for a in range(0, n_ax, band)]
+        maps_p = [torch.cat([p[k] for p in parts], dim=axis) for k in range(4)]
         del parts, C32, partial
         note("sgm_sweep_wta", max(max_err(torch, a, b) for a, b in zip(maps, maps_p)))
-        log(f"[4K {nd}-dir] sgm_sweep_wta: equal (disp, valid, best, minS); "
+        log(f"[4K {nd}-dir] sgm_sweep_wta: equal (disp, valid, best, minS) in "
+            f"{len(range(0, n_ax, band))} {('row', 'column')[axis]} bands; "
             f"valid share {maps[1].float().mean().item():.4f}")
+        fused_candidates("4K", C, nd, md, maps)
         disp, valid, best, minS = maps
         keep = LK.lr_check_maps(best, minS, disp, D, md, cfg.disp12_max_diff)
         keep_p = LK.lr_check_maps_plain(best, minS, disp, D, md, cfg.disp12_max_diff)
@@ -933,7 +973,7 @@ def main() -> int:
             raise AssertionError("the main path's 4K disparity map differs from the plain chain's")
         log("[4K] disparity map of the main path equals the plain chain's")
         # Each kernel alone at this shape, and the host speckle pass.
-        kernel_ms = {
+        breakdown = {
             "cost_volume": cuda_ms(lambda: CK.cost_volume(*planes, D, md, cfg.block_size), 3),
             f"sgm_path_sweep x{nd - 1}": cuda_ms(lambda: SK.path_deltas_cuda(C, nd, p1, p2), 3),
             "sgm_sweep_wta": cuda_ms(lambda: SK.sweep_wta_cuda(C, vols, nd, p1, p2, ur, md), 3),
@@ -941,7 +981,7 @@ def main() -> int:
                 best, minS, disp, D, md, cfg.disp12_max_diff), 10),
             "host speckle (wall, copies included)": speckle_ms,
         }
-        log("4K disparity breakdown (ms): " + json.dumps(kernel_ms))
+        log("4K disparity breakdown (ms): " + json.dumps(breakdown))
 
         # Speckle at 4K: labels vs the plain flood's fixpoint, keep vs the host
         # filter, on the device chain's own maps (its margin sliced off, its
@@ -953,7 +993,7 @@ def main() -> int:
             raise AssertionError("4K frame: the device speckle's mask differs from the host filter's")
         rng = np.random.default_rng(SEED + 3)
         Wc = W4 - md - D
-        maps = [("4K frame", d3[:, md + D:].contiguous(), v3[:, md + D:].contiguous(), rng_diff)]
+        maps = [("4K frame", d3[:, md + D:], v3[:, md + D:], rng_diff)]
         for label, (dn, vn) in (("4K speckled", speckled_map(rng, H, Wc, 0.3, 4)),
                                 ("4K serpentine", serpentine_map(rng, H, Wc, 40))):
             maps.append((label, torch.from_numpy(dn).to(dev), torch.from_numpy(vn).to(dev),

@@ -135,13 +135,13 @@ def speckle_library() -> ctypes.CDLL:
 
 
 def _declare_kernels(lib: ctypes.CDLL) -> None:
-    P, I = ctypes.c_void_p, ctypes.c_int
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.srcv_cost_volume.argtypes = [P] * 5 + [I] * 9 + [P]
     lib.srcv_sgm_path_sweep.argtypes = [P, P] + [I] * 9 + [P]
-    lib.srcv_sgm_sweep_wta.argtypes = [P] * 7 + [I] * 11 + [P]
+    lib.srcv_sgm_sweep_wta.argtypes = [P] * 7 + [I] * 12 + [P]
     lib.srcv_lr_check.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
-    lib.srcv_speckle_labels.argtypes = [P, P, P, I, I, ctypes.c_float, P]
-    lib.srcv_speckle_keep.argtypes = [P, P, P, P, I, I, P]
+    lib.srcv_speckle_labels.argtypes = [P, P, P, I, I, LL, LL, ctypes.c_float, P]
+    lib.srcv_speckle_keep.argtypes = [P, P, P, P, I, I, LL, I, P]
     lib.srcv_wta.argtypes = [P] * 3 + [I] * 11 + [P] * 6
     lib.srcv_op_chain.argtypes = [P, P, I, I, I, I, P]
     for fn in (lib.srcv_cost_volume, lib.srcv_sgm_path_sweep, lib.srcv_sgm_sweep_wta,

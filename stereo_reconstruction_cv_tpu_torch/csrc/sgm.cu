@@ -42,8 +42,26 @@
 // delta volume are loaded P steps ahead into a ring of registers, so a step
 // waits on no memory: a later pixel's delta can be read early because no
 // other step of this direction writes it. Blocks hold two warps, to spread
-// the few paths of a 720p direction over all SMs. dp_step and the fused
-// sweep_wta_kernel are unchanged.
+// the few paths of a 720p direction over all SMs. dp_step is unchanged.
+//
+// sweep_wta_kernel streams C and one or two delta volumes (2 + 2 per volume
+// B/cell) and writes 13 B/pixel. Its first design loaded the next pixel's
+// values with K scalar loads inside the current step (1.0 us a step at
+// 720p, 0.17 of its bytes bound; 0.32 at 4K) and had lane 0 store four maps
+// every step. Taking the path sweep's register ring for its three streams
+// did not help: ablations on the card showed the loads, not the arithmetic,
+// setting the pace (PERF.md, PR 5). It now keeps WTA_STAGES
+// steps of its rows in flight with cp.async into a ring in shared memory,
+// each step one commit group, and waits for exactly the oldest group; each
+// lane reads back only the bytes it copied itself, so no barrier is needed.
+// Rows are one access of 2K bytes (VEC, K >= 2); other shapes load each
+// step's rows in the step (the general path, same kernel body). Blocks hold
+// two warps. The WTA's four warp reductions per step do not feed the DP:
+// the DP runs over WTA_BATCH steps and keeps their S rows, then their
+// reductions are issued together and overlap. The four results of step s
+// stay in lane s % 32 and the warp stores 32 steps at once. The numerics
+// (dp_step, the packed key S*Dp + d, the uniqueness rule, the f32 subpixel)
+// are unchanged.
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -52,7 +70,6 @@ namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int BIG = 1 << 29;  // no-neighbour sentinel; BIG + P1 cannot overflow
-constexpr int WARPS = 4;      // paths (warps) per block of sweep_wta_kernel
 
 // Start pixel of path i for direction (dx, dy); false past the last path.
 __device__ __forceinline__ bool path_start(int i, int dx, int dy, int H, int W,
@@ -189,7 +206,7 @@ __device__ __forceinline__ uint32_t row_u16(const Row<K>& r, int k) {
   return k & 1 ? r.w[k / 2] >> 16 : r.w[k / 2] & 0xffffu;
 }
 
-constexpr int SWEEP_WARPS = 2;  // paths (warps) per block of path_sweep_kernel
+constexpr int SWEEP_WARPS = 2;  // paths (warps) per block of both sweep kernels
 
 // Steps loaded ahead: a ring of P rows of C and of the delta volume per lane
 // (2 * P * ceil(K/2) registers).
@@ -258,104 +275,224 @@ path_sweep_kernel(const int16_t* __restrict__ C, uint16_t* __restrict__ acc,
   }
 }
 
-// nd*C + the stored delta volumes for one pixel (dsb may be null).
+// sweep_wta_kernel's vector path keeps WTA_STAGES steps of C and the delta
+// volumes in flight through a cp.async ring in shared memory (a register
+// ring this deep left the loads waiting on each other). WTA_BATCH steps'
+// S rows are kept in registers so that their WTA reductions are issued
+// together; it divides 32, so the buffered maps are stored at a batch's end.
+// WTA_MIN_BLOCKS caps the registers of K <= 8 at 128, eight blocks an SM.
+// Chosen on the card (PERF.md, PR 5): with batch 4 and the cap the 4K time
+// was the lowest or tied in every call and varied least between machines,
+// and no instance spills (without the cap, small-K instances spill a few
+// bytes).
 template <int K>
-__device__ __forceinline__ void load_partial(const int16_t* __restrict__ C,
-                                             const uint16_t* __restrict__ dsa,
-                                             const uint16_t* __restrict__ dsb,
-                                             size_t base, int lane, int D, int nd,
-                                             int (&c)[K], int (&s)[K]) {
+constexpr int WTA_STAGES = K <= 4 ? 16 : (K == 8 ? 8 : 4);
+template <int K>
+constexpr int WTA_BATCH = K <= 4 ? 8 : 4;
+template <int K>
+constexpr int WTA_MIN_BLOCKS = K <= 8 ? 8 : 1;
+
+// cp.async of one lane's row (2K bytes, 4 to 32) from global to shared memory.
+template <int K>
+__device__ __forceinline__ void copy_row_async(uint8_t* dst, const uint16_t* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (K == 2) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+  } else if constexpr (K == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
+  } else {
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int d = lane * K + k;
-    if (d < D) {
-      c[k] = (int)C[base + d];
-      s[k] = nd * c[k] + (int)dsa[base + d] + (dsb ? (int)dsb[base + d] : 0);
-    } else {
-      c[k] = 0;
-      s[k] = 0;
+    for (int i = 0; i < K / 8; ++i) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d + 16 * i),
+                   "l"(src + 8 * i));
     }
   }
 }
 
-template <int K>
-__global__ void __launch_bounds__(32 * WARPS)
+__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Writes the buffered maps of steps sb .. sb + 31 (lane L holds step sb + L;
+// lanes past the path's last step hold nothing and store nothing).
+__device__ __forceinline__ void store_maps(float* __restrict__ disp, uint8_t* __restrict__ valid,
+                                           int32_t* __restrict__ best_out,
+                                           int32_t* __restrict__ mins_out, size_t o0,
+                                           long long ostep, int sb, int last, int lane,
+                                           int best, int minS, int sm1, int sp1, bool bad,
+                                           int D, int min_disp) {
+  if (sb + lane > last) return;
+  // Parabolic subpixel, interior winners only, in f32 with the reference's
+  // operation order and round-to-nearest intrinsics (no contraction, no
+  // fast division).
+  float dv = (float)best;
+  if (best > 0 && best < D - 1) {
+    const float denom = (float)max(sm1 + sp1 - 2 * minS, 1);
+    dv = __fadd_rn(dv, __fdiv_rn((float)(sm1 - sp1), __fmul_rn(2.0f, denom)));
+  } else {
+    dv = __fadd_rn(dv, 0.0f);
+  }
+  const size_t o = o0 + (long long)(sb + lane) * ostep;
+  disp[o] = __fadd_rn(dv, (float)min_disp);
+  valid[o] = bad ? 0 : 1;
+  best_out[o] = best;
+  mins_out[o] = minS;
+}
+
+// TWO: a second delta volume dsb. VEC: D % K == 0 and aligned volumes, as
+// path_sweep_kernel's; with K >= 2 it takes the cp.async ring, else each
+// step loads its rows itself (the general path, same kernel body).
+template <int K, bool VEC, bool TWO>
+__global__ void __launch_bounds__(32 * SWEEP_WARPS, WTA_MIN_BLOCKS<K>)
 sweep_wta_kernel(const int16_t* __restrict__ C, const uint16_t* __restrict__ dsa,
                  const uint16_t* __restrict__ dsb, float* __restrict__ disp,
                  uint8_t* __restrict__ valid, int32_t* __restrict__ best_out,
                  int32_t* __restrict__ mins_out, int H, int W, int D, int dx,
                  int dy, int nd, int P1, int P2, int ur, int min_disp, int lg) {
+  constexpr bool RING = VEC && K >= 2;
+  constexpr int NV = TWO ? 3 : 2;  // rows per step: C, dsa (, dsb)
+  constexpr int ST = WTA_STAGES<K>;
+  constexpr int P = WTA_BATCH<K>;
+  constexpr int ROW = 64 * K;  // bytes of one warp's row
+  __shared__ __align__(16) uint8_t ring[RING ? SWEEP_WARPS * ST * NV * ROW : 16];
   const int lane = threadIdx.x & 31;
   int y, x;
-  if (!path_start(blockIdx.x * WARPS + (threadIdx.x >> 5), dx, dy, H, W, y, x)) return;
-  int lam[K], c[K], s[K], cn[K], sn[K], delta[K];
+  if (!path_start(blockIdx.x * SWEEP_WARPS + (threadIdx.x >> 5), dx, dy, H, W, y, x)) return;
+  const int n = path_steps(y, x, dx, dy, H, W);
+  const long long ostep = (long long)dy * W + dx;  // pixels per path step
+  const long long step = ostep * D;                // elements per path step
+  const size_t o0 = (size_t)y * W + x;
+  const size_t first = o0 * D + (size_t)lane * K;
+  const uint16_t* src[3] = {reinterpret_cast<const uint16_t*>(C) + first, dsa + first,
+                            TWO ? dsb + first : nullptr};
+  const int nvalid = D - lane * K;  // with VEC, either <= 0 or >= K
+  const bool active = nvalid > 0;
+  uint8_t* mine = ring + (threadIdx.x >> 5) * (ST * NV * ROW) + lane * 2 * K;
+  // One commit group per step, empty past the path's end or on idle lanes.
+  auto fetch = [&](int s) {
+    if (active && s < n) {
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    lam[k] = lane * K + k < D ? 0 : BIG;
-    cn[k] = 0;
-    sn[k] = 0;
+      for (int v = 0; v < NV; ++v) {
+        copy_row_async<K>(mine + ((s & (ST - 1)) * NV + v) * ROW, src[v] + s * step);
+      }
+    }
+    copy_commit();
+  };
+  if constexpr (RING) {
+#pragma unroll
+    for (int s = 0; s < ST - 1; ++s) fetch(s);
   }
-  load_partial<K>(C, dsa, dsb, ((size_t)y * W + x) * D, lane, D, nd, c, s);
-  const int dmask = (1 << lg) - 1;
-  while (true) {
-    const int ny = y + dy, nx = x + dx;
-    const bool more = ny >= 0 && ny < H && nx >= 0 && nx < W;
-    if (more) load_partial<K>(C, dsa, dsb, ((size_t)ny * W + nx) * D, lane, D, nd, cn, sn);
-    dp_step<K>(lam, c, delta, lane, D, P1, P2);
 
-    // Packed key S*Dp + d: one min gives minS and the smallest-d argmin.
-    int key = INT_MAX;
+  int lam[K];
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      s[k] += delta[k];
-      const int d = lane * K + k;
-      if (d < D) key = min(key, (s[k] << lg) + d);
-    }
-    key = __reduce_min_sync(FULL, key);
-    const int best = key & dmask;
-    const int minS = key >> lg;
-    // Uniqueness: invalid if some |d - best| > 1 has S*(100 - ur) < minS*100.
-    bool bad = false;
-    unsigned sm1 = 0, sp1 = 0;
+  for (int k = 0; k < K; ++k) lam[k] = lane * K + k < D ? 0 : BIG;
+  const int dmask = (1 << lg) - 1;
+  // This lane's buffered results (of step s with s % 32 == lane).
+  int hb = 0, hm = 0, hsm1 = 0, hsp1 = 0;
+  bool hbad = false;
+
+  for (int s0 = 0; s0 < n; s0 += P) {
+    // The DP over P steps, keeping each step's S row. The WTA of those
+    // steps follows: its reductions do not feed the DP, so issued together
+    // they overlap instead of lengthening every step's chain.
+    int S[P][K];
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int d = lane * K + k;
-      if (d < D) {
-        if (abs(d - best) > 1 && s[k] * (100 - ur) < minS * 100) bad = true;
-        if (d == best - 1) sm1 = (unsigned)s[k];
-        if (d == best + 1) sp1 = (unsigned)s[k];
-      }
-    }
-    bad = __any_sync(FULL, bad);
-    sm1 = __reduce_add_sync(FULL, sm1);  // one lane holds each neighbour
-    sp1 = __reduce_add_sync(FULL, sp1);
-    if (lane == 0) {
-      // Parabolic subpixel, interior winners only, in f32 with the
-      // reference's operation order and round-to-nearest intrinsics (no
-      // contraction, no fast division).
-      float dv = (float)best;
-      if (best > 0 && best < D - 1) {
-        const int Sm1 = (int)sm1, Sp1 = (int)sp1;
-        const float denom = (float)max(Sm1 + Sp1 - 2 * minS, 1);
-        dv = __fadd_rn(dv, __fdiv_rn((float)(Sm1 - Sp1), __fmul_rn(2.0f, denom)));
+    for (int j = 0; j < P; ++j) {
+      const int s = s0 + j;
+      if (s < n) {
+        Row<K> r[NV];
+        if constexpr (RING) {
+          fetch(s + ST - 1);
+          copy_wait<ST - 1>();  // this lane's copies of step s have landed
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+            load_row<K, true>(reinterpret_cast<const uint16_t*>(
+                                  mine + ((s & (ST - 1)) * NV + v) * ROW), K, r[v]);
+          }
+        } else {
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+#pragma unroll
+            for (int i = 0; i < (K + 1) / 2; ++i) r[v].w[i] = 0;
+            if (active) load_row<K, VEC>(src[v] + s * step, nvalid, r[v]);
+          }
+        }
+        int c[K], delta[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) c[k] = row_s16<K>(r[0], k);
+        dp_step<K>(lam, c, delta, lane, D, P1, P2);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          S[j][k] = nd * c[k] + (int)row_u16<K>(r[1], k) + delta[k];
+          if constexpr (TWO) S[j][k] += (int)row_u16<K>(r[2], k);
+        }
       } else {
-        dv = __fadd_rn(dv, 0.0f);
-      }
-      const size_t o = (size_t)y * W + x;
-      disp[o] = __fadd_rn(dv, (float)min_disp);
-      valid[o] = bad ? 0 : 1;
-      best_out[o] = best;
-      mins_out[o] = minS;
-    }
-    if (!more) break;
-    y = ny;
-    x = nx;
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      c[k] = cn[k];
-      s[k] = sn[k];
+        for (int k = 0; k < K; ++k) S[j][k] = 0;
+      }
+    }
+    // Packed key S*Dp + d: one min gives minS and the smallest-d argmin.
+    // Written without branches, so the P steps' work interleaves.
+    int key[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      key[j] = INT_MAX;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        key[j] = min(key[j], lane * K + k < D ? (S[j][k] << lg) + lane * K + k : INT_MAX);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < P; ++j) key[j] = __reduce_min_sync(FULL, key[j]);
+    // Uniqueness: invalid if some |d - best| > 1 has S*(100 - ur) < minS*100.
+    // S[best -+ 1] come from the one lane that holds each (a padding entry
+    // can match best + 1 = D only, whose S the subpixel step does not use).
+    bool bad[P];
+    unsigned sm1[P], sp1[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int best = key[j] & dmask;
+      const int thr = (key[j] >> lg) * 100;
+      bool b = false;
+      unsigned m1 = 0, p1 = 0;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int e = lane * K + k - best;  // d - best
+        b |= (lane * K + k < D) & ((unsigned)(e + 1) > 2u) & (S[j][k] * (100 - ur) < thr);
+        m1 = e == -1 ? (unsigned)S[j][k] : m1;
+        p1 = e == 1 ? (unsigned)S[j][k] : p1;
+      }
+      bad[j] = b;
+      sm1[j] = m1;
+      sp1[j] = p1;
+    }
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      bad[j] = __any_sync(FULL, bad[j]);
+      sm1[j] = __reduce_add_sync(FULL, sm1[j]);  // one lane holds each neighbour
+      sp1[j] = __reduce_add_sync(FULL, sp1[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      if (lane == ((s0 + j) & 31)) {
+        hb = key[j] & dmask;
+        hm = key[j] >> lg;
+        hsm1 = (int)sm1[j];
+        hsp1 = (int)sp1[j];
+        hbad = bad[j];
+      }
+    }
+    // P divides 32: a group of 32 steps ends with a batch or with the path.
+    const int last = min(s0 + P, n) - 1;
+    if (((last + 1) & 31) == 0 || last == n - 1) {
+      store_maps(disp, valid, best_out, mins_out, o0, ostep, last & ~31, last, lane, hb, hm,
+                 hsm1, hsp1, hbad, D, min_disp);
     }
   }
+  if constexpr (RING) copy_wait<0>();  // no copy outlives the block
 }
 
 int num_paths(int dx, int dy, int H, int W) {
@@ -389,16 +526,37 @@ int launch_sweep(const void* C, void* acc, int H, int W, int D, int dx, int dy,
   return (int)cudaGetLastError();
 }
 
+template <int K, bool VEC, bool TWO>
+void launch_wta_instance(const void* C, const void* dsa, const void* dsb, void* disp,
+                         void* valid, void* best, void* mins, int H, int W, int D,
+                         int dx, int dy, int nd, int P1, int P2, int ur, int min_disp,
+                         int lg, cudaStream_t stream) {
+  const int blocks = (num_paths(dx, dy, H, W) + SWEEP_WARPS - 1) / SWEEP_WARPS;
+  sweep_wta_kernel<K, VEC, TWO><<<blocks, 32 * SWEEP_WARPS, 0, stream>>>(
+      (const int16_t*)C, (const uint16_t*)dsa, (const uint16_t*)dsb, (float*)disp,
+      (uint8_t*)valid, (int32_t*)best, (int32_t*)mins, H, W, D, dx, dy, nd, P1, P2,
+      ur, min_disp, lg);
+}
+
 template <int K>
 int launch_wta(const void* C, const void* dsa, const void* dsb, void* disp,
                void* valid, void* best, void* mins, int H, int W, int D, int dx,
-               int dy, int nd, int P1, int P2, int ur, int min_disp, int lg,
+               int dy, int nd, int P1, int P2, int ur, int min_disp, int lg, int vec,
                cudaStream_t stream) {
-  const int blocks = (num_paths(dx, dy, H, W) + WARPS - 1) / WARPS;
-  sweep_wta_kernel<K><<<blocks, 32 * WARPS, 0, stream>>>(
-      (const int16_t*)C, (const uint16_t*)dsa, (const uint16_t*)dsb,
-      (float*)disp, (uint8_t*)valid, (int32_t*)best, (int32_t*)mins, H, W, D,
-      dx, dy, nd, P1, P2, ur, min_disp, lg);
+  const unsigned align = K >= 8 ? 16u : 2u * K;
+  if (vec && (D % K != 0 ||
+              ((uintptr_t)C | (uintptr_t)dsa | (uintptr_t)dsb) % align != 0)) {
+    return (int)cudaErrorInvalidValue;  // the caller asked for a layout it lacks
+  }
+#define SRCV_WTA_INSTANCE(VV, TT)                                                  \
+  launch_wta_instance<K, VV, TT>(C, dsa, dsb, disp, valid, best, mins, H, W, D, dx, \
+                                 dy, nd, P1, P2, ur, min_disp, lg, stream)
+  if (vec) {
+    if (dsb) SRCV_WTA_INSTANCE(true, true); else SRCV_WTA_INSTANCE(true, false);
+  } else {
+    if (dsb) SRCV_WTA_INSTANCE(false, true); else SRCV_WTA_INSTANCE(false, false);
+  }
+#undef SRCV_WTA_INSTANCE
   return (int)cudaGetLastError();
 }
 
@@ -429,15 +587,16 @@ int srcv_sgm_path_sweep(const void* C, void* acc, int H, int W, int D, int dx,
 
 // Last direction fused with WTA. dsa, dsb: u16 delta volumes of the other
 // directions (dsb may be null). Outputs (H, W): disp f32, valid u8,
-// best i32, minS i32. lg = log2 of the power of two >= D.
+// best i32, minS i32. lg = log2 of the power of two >= D. vec as for
+// srcv_sgm_path_sweep, over C, dsa and dsb.
 int srcv_sgm_sweep_wta(const void* C, const void* dsa, const void* dsb,
                        void* disp, void* valid, void* best, void* mins, int H,
                        int W, int D, int dx, int dy, int nd, int P1, int P2,
-                       int ur, int min_disp, int lg, void* stream) {
+                       int ur, int min_disp, int lg, int vec, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
 #define SRCV_WTA(KK)                                                          \
   return launch_wta<KK>(C, dsa, dsb, disp, valid, best, mins, H, W, D, dx, dy, \
-                        nd, P1, P2, ur, min_disp, lg, s)
+                        nd, P1, P2, ur, min_disp, lg, vec, s)
   switch (lanes_k(D)) {
     case 1: SRCV_WTA(1);
     case 2: SRCV_WTA(2);

@@ -15,28 +15,48 @@
 // sync at all:
 //
 //   srcv_speckle_labels, three launches
-//     local:    one block per 32x32 tile; union-find in shared memory over
-//               the tile's own edges, then every pixel stores its tile root
+//     local:    one block per 32x32 tile, one warp per tile row. A pixel
+//               joined to its left neighbour continues that neighbour's run:
+//               the joined-left bits of a row come from one __ballot_sync,
+//               and each pixel's parent is the first pixel of its run (bit
+//               arithmetic, no atomics). Then union-find in shared memory
+//               over the vertical edges that add something: p is united
+//               with p - W unless p, p - 1, p - 1 - W and p - W form a joined
+//               square (p - 1 inside the tile), whose other three edges
+//               already connect them. Every pixel then stores its tile root
 //               (as a global index) in parent[].
 //     boundary: one thread per pixel on a tile's left or top edge; union
-//               with the neighbour across the edge in device memory.
-//     flatten:  parent[i] = find(i) with path halving (atomicMin writes),
-//               H*W for invalid pixels. parent[] IS the label map.
+//               with the neighbour across the edge in device memory, skipping
+//               the edges that a joined square closes the same way (on a top
+//               edge with the crossed edge to its left, on a left edge with
+//               the crossed edge above; never at a tile's corner pixel).
+//     flatten:  parent[i] = the root of i's chain, H*W for invalid pixels.
+//               parent[] IS the label map.
 //   Union always hangs the larger root under the smaller index (atomicMin),
 //   so parent[x] <= x holds at all times and a component's root is its
 //   smallest index: the flood's fixpoint label, whatever the order of the
 //   atomics. A stale read only costs a retry (every value ever stored is an
-//   ancestor), so the loops terminate.
+//   ancestor), so the loops terminate. find() halves the path it walks.
+//   Skipping an edge keeps the components: each skipped edge is implied by
+//   a chain of joined edges that ends in a kept one (ops/cuda/speckle.py:
+//   reduced_connectivity is the plain mirror of the kept edge set).
 //
 //   srcv_speckle_keep: a histogram of labels over the VALID pixels only (the
 //   invalid sink would put millions of atomics on one address), warp-
 //   aggregated with __match_any_sync because a disparity map is mostly one
 //   giant component; then keep = valid & (count[label] > max_size).
 //
+//   disp and valid are read through a row stride (in elements), so a column
+//   slice of a wider map (the SGBM map without its left margin) needs no
+//   copy; labels and keep are written contiguous (H, W).
+//
 // What bounds it on an H100: a 4K map is 7.7 M pixels, ~40 MB of f32 + u8 +
-// i32 traffic per pass (~12 us at 3.35 TB/s); the time goes to dependent
-// find() chains and to atomics on the few roots of large components, not to
-// bandwidth. No fast-math: the connectivity test is an exact f32 compare.
+// i32 traffic per pass (~12 us at 3.35 TB/s). The first design called
+// unite() for every joined edge (up to 2048 a tile), and on the main path's
+// maps, nearly one component, each walked uncompressed chains and retried
+// atomicMin on the same few roots: 0.146 ms on a 720p map, 1.15 ms at 4K
+// for the local kernel alone. No fast-math: the connectivity test is an
+// exact f32 compare.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -49,18 +69,30 @@ constexpr int TH = 32;     // tile height
 constexpr int ROWS = 8;    // blockDim.y of the local kernel: TH / ROWS rows per thread
 constexpr int THREADS = 256;
 
+// Pixels (y1, x1) and (y2, x2) both valid and within max_diff.
 __device__ __forceinline__ bool joined(const float* __restrict__ disp,
-                                       const uint8_t* __restrict__ valid,
-                                       size_t i, size_t j, float max_diff) {
-  return valid[j] && fabsf(disp[i] - disp[j]) <= max_diff;
+                                       const uint8_t* __restrict__ valid, long long ds,
+                                       long long vs, int y1, int x1, int y2, int x2,
+                                       float max_diff) {
+  return valid[y1 * vs + x1] && valid[y2 * vs + x2] &&
+         fabsf(disp[y1 * ds + x1] - disp[y2 * ds + x2]) <= max_diff;
 }
 
 // Union-find on a parent array in shared (tile-local indices) or device
-// memory (global indices): generic pointers, so one copy serves both.
-__device__ __forceinline__ int find_root(const volatile int* p, int x) {
-  int y;
-  while ((y = p[x]) != x) x = y;
-  return x;
+// memory (global indices): generic pointers, so one copy serves both. Path
+// halving: x's parent is set to its grandparent as the walk passes. Only a
+// non-root is written (a root is only ever written by unite's atomicMin),
+// and what is written is an ancestor smaller than x, so a write that lands
+// over another thread's keeps every chain intact.
+__device__ __forceinline__ int find_root(volatile int* p, int x) {
+  while (true) {
+    const int y = p[x];
+    if (y == x) return x;
+    const int z = p[y];
+    if (z == y) return y;
+    p[x] = z;
+    x = z;
+  }
 }
 
 // Hangs the larger of the two roots under the smaller index. When the
@@ -85,35 +117,49 @@ __device__ __forceinline__ void unite(int* p, int a, int b) {
 
 __global__ void __launch_bounds__(TW * ROWS)
 labels_local_kernel(const float* __restrict__ disp, const uint8_t* __restrict__ valid,
-                    int* __restrict__ parent, int H, int W, float max_diff) {
+                    int* __restrict__ parent, int H, int W, long long ds, long long vs,
+                    float max_diff) {
   __shared__ int sp[TH * TW];
-  __shared__ uint8_t sc[TH * TW];  // bit 0: joined left, bit 1: joined up (in-tile)
+  __shared__ float sd[TH * TW];
+  __shared__ uint8_t sv[TH * TW];
+  __shared__ unsigned sch[TH];  // per tile row: bit tx = joined to its left neighbour
   const int tx = threadIdx.x;
   const int x = blockIdx.x * TW + tx;
   const int y0 = blockIdx.y * TH;
+  // Horizontal edges: each pixel's parent is the first pixel of its run.
 #pragma unroll
   for (int r = 0; r < TH / ROWS; ++r) {
     const int ty = threadIdx.y + r * ROWS;
     const int y = y0 + ty;
     const int l = ty * TW + tx;
-    sp[l] = l;
-    uint8_t c = 0;
+    bool v = false;
+    float d = 0.0f;
     if (x < W && y < H) {
-      const size_t i = (size_t)y * W + x;
-      if (valid[i]) {
-        if (tx > 0 && joined(disp, valid, i, i - 1, max_diff)) c |= 1;
-        if (ty > 0 && joined(disp, valid, i, i - W, max_diff)) c |= 2;
-      }
+      v = valid[y * vs + x];
+      d = disp[y * ds + x];
     }
-    sc[l] = c;
+    const float dl = __shfl_up_sync(FULL, d, 1);
+    const bool vl = __shfl_up_sync(FULL, (int)v, 1);
+    const bool ch = tx > 0 && v && vl && fabsf(d - dl) <= max_diff;
+    const unsigned runs = __ballot_sync(FULL, ch);
+    // Run starts (lanes not joined left) at or below this lane; lane 0 is one.
+    const unsigned starts = ~runs & ((2u << tx) - 1u);
+    sp[l] = ty * TW + 31 - __clz(starts);
+    sd[l] = d;
+    sv[l] = v;
+    if (tx == 0) sch[ty] = runs;
   }
   __syncthreads();
+  // Vertical edges inside the tile, but not those a joined square closes.
 #pragma unroll
   for (int r = 0; r < TH / ROWS; ++r) {
-    const int l = (threadIdx.y + r * ROWS) * TW + tx;
-    const uint8_t c = sc[l];
-    if (c & 1) unite(sp, l, l - 1);
-    if (c & 2) unite(sp, l, l - TW);
+    const int ty = threadIdx.y + r * ROWS;
+    const int l = ty * TW + tx;
+    if (ty > 0 && sv[l] && sv[l - TW] && fabsf(sd[l] - sd[l - TW]) <= max_diff) {
+      const bool square = ((sch[ty] & sch[ty - 1]) >> tx & 1u) != 0 && sv[l - 1 - TW] &&
+                          fabsf(sd[l - 1] - sd[l - 1 - TW]) <= max_diff;
+      if (!square) unite(sp, l, l - TW);
+    }
   }
   __syncthreads();
 #pragma unroll
@@ -133,58 +179,70 @@ labels_local_kernel(const float* __restrict__ disp, const uint8_t* __restrict__ 
 // the top edges of tile rows 1...
 __global__ void __launch_bounds__(THREADS)
 labels_boundary_kernel(const float* __restrict__ disp, const uint8_t* __restrict__ valid,
-                       int* parent, int H, int W, float max_diff, long long nv,
-                       long long nh) {
+                       int* parent, int H, int W, long long ds, long long vs,
+                       float max_diff, long long nv, long long nh) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= nv + nh) return;
   int x, y;
-  size_t j;
+  bool cross;  // the edge from (y, x) across the border
   if (t < nv) {
     y = (int)(t % H);
     x = (int)(t / H + 1) * TW;
-    j = (size_t)y * W + x - 1;
+    cross = joined(disp, valid, ds, vs, y, x, y, x - 1, max_diff);
+    // Closed by the square above: both vertical edges inside their tiles,
+    // and the crossing one row up.
+    if (cross && y % TH != 0 && joined(disp, valid, ds, vs, y, x, y - 1, x, max_diff) &&
+        joined(disp, valid, ds, vs, y, x - 1, y - 1, x - 1, max_diff) &&
+        joined(disp, valid, ds, vs, y - 1, x, y - 1, x - 1, max_diff)) {
+      return;
+    }
+    if (cross) unite(parent, y * W + x, y * W + x - 1);
   } else {
     const long long u = t - nv;
     x = (int)(u % W);
     y = (int)(u / W + 1) * TH;
-    j = (size_t)(y - 1) * W + x;
+    cross = joined(disp, valid, ds, vs, y, x, y - 1, x, max_diff);
+    // Closed by the square to the left: both horizontal edges inside their
+    // tiles, and the crossing one column left.
+    if (cross && x % TW != 0 && joined(disp, valid, ds, vs, y, x, y, x - 1, max_diff) &&
+        joined(disp, valid, ds, vs, y - 1, x, y - 1, x - 1, max_diff) &&
+        joined(disp, valid, ds, vs, y, x - 1, y - 1, x - 1, max_diff)) {
+      return;
+    }
+    if (cross) unite(parent, y * W + x, (y - 1) * W + x);
   }
-  const size_t i = (size_t)y * W + x;
-  if (valid[i] && joined(disp, valid, i, j, max_diff)) unite(parent, (int)i, (int)j);
 }
 
 __global__ void __launch_bounds__(THREADS)
-labels_flatten_kernel(const uint8_t* __restrict__ valid, int* parent, int n) {
+labels_flatten_kernel(const uint8_t* __restrict__ valid, int* parent, int H, int W,
+                      long long vs) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  if (!valid[i]) {
-    parent[i] = n;  // invalid pixels are never on another pixel's chain
+  if (i >= H * W) return;
+  const int row = i / W;
+  if (!valid[row * vs + (i - row * W)]) {
+    parent[i] = H * W;  // invalid pixels are never on another pixel's chain
     return;
   }
-  // Path halving. Every value read is an ancestor of x and the root is the
-  // smallest of them, so writing with atomicMin leaves each parent[i] at its
-  // root whatever order the threads' compressions land in.
+  // Every value on the chain is an ancestor and the root, the smallest, is
+  // never rewritten, so a walk that meets another thread's store still ends
+  // at the root. The lanes of a tile row share one chain: compressing it on
+  // the way (atomicMin) put 32 atomics on each address and was slower.
   const volatile int* p = parent;
-  int x = i;
+  int x = p[i];
   while (true) {
     const int y = p[x];
     if (y == x) break;
-    const int z = p[y];
-    if (z == y) {
-      x = y;
-      break;
-    }
-    atomicMin(&parent[x], z);
-    x = z;
+    x = y;
   }
-  if (p[i] != x) atomicMin(&parent[i], x);
+  parent[i] = x;
 }
 
 __global__ void __launch_bounds__(THREADS)
 keep_count_kernel(const int* __restrict__ labels, const uint8_t* __restrict__ valid,
-                  int* __restrict__ counts, int n) {
+                  int* __restrict__ counts, int H, int W, long long vs) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = i < n && valid[i];
+  const int row = i / W;
+  const bool active = i < H * W && valid[row * vs + (i - row * W)];
   const unsigned members = __ballot_sync(FULL, active);
   if (!active) return;
   const int lab = labels[i];
@@ -194,11 +252,12 @@ keep_count_kernel(const int* __restrict__ labels, const uint8_t* __restrict__ va
 
 __global__ void __launch_bounds__(THREADS)
 keep_test_kernel(const int* __restrict__ labels, const uint8_t* __restrict__ valid,
-                 const int* __restrict__ counts, uint8_t* __restrict__ keep, int n,
-                 int max_size) {
+                 const int* __restrict__ counts, uint8_t* __restrict__ keep, int H, int W,
+                 long long vs, int max_size) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  keep[i] = valid[i] && counts[labels[i]] > max_size;
+  if (i >= H * W) return;
+  const int row = i / W;
+  keep[i] = valid[row * vs + (i - row * W)] && counts[labels[i]] > max_size;
 }
 
 unsigned blocks_for(long long n) { return (unsigned)((n + THREADS - 1) / THREADS); }
@@ -207,43 +266,45 @@ unsigned blocks_for(long long n) { return (unsigned)((n + THREADS - 1) / THREADS
 
 extern "C" {
 
-// disp: (H, W) f32; valid: (H, W) u8 (torch bool); labels: (H, W) i32 out.
+// disp: (H, W) f32, rows ds elements apart; valid: (H, W) u8 (torch bool),
+// rows vs apart; labels: (H, W) i32 out, contiguous.
 int srcv_speckle_labels(const void* disp, const void* valid, void* labels, int H, int W,
-                        float max_diff, void* stream) {
+                        long long ds, long long vs, float max_diff, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const float* d = (const float*)disp;
   const uint8_t* v = (const uint8_t*)valid;
   int* p = (int*)labels;
   const dim3 tiles((W + TW - 1) / TW, (H + TH - 1) / TH);
-  labels_local_kernel<<<tiles, dim3(TW, ROWS), 0, s>>>(d, v, p, H, W, max_diff);
+  labels_local_kernel<<<tiles, dim3(TW, ROWS), 0, s>>>(d, v, p, H, W, ds, vs, max_diff);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long nv = (long long)H * (tiles.x - 1);
   const long long nh = (long long)W * (tiles.y - 1);
   if (nv + nh > 0) {
-    labels_boundary_kernel<<<blocks_for(nv + nh), THREADS, 0, s>>>(d, v, p, H, W, max_diff,
-                                                                    nv, nh);
+    labels_boundary_kernel<<<blocks_for(nv + nh), THREADS, 0, s>>>(d, v, p, H, W, ds, vs,
+                                                                    max_diff, nv, nh);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  labels_flatten_kernel<<<blocks_for((long long)H * W), THREADS, 0, s>>>(v, p, H * W);
+  labels_flatten_kernel<<<blocks_for((long long)H * W), THREADS, 0, s>>>(v, p, H, W, vs);
   return (int)cudaGetLastError();
 }
 
-// labels: (n,) i32 fixpoint labels; valid: (n,) u8; counts: (n,) i32 scratch;
-// keep: (n,) u8 out.
+// labels: (H, W) i32 fixpoint labels, contiguous; valid: (H, W) u8, rows vs
+// apart; counts: (H*W,) i32 scratch; keep: (H, W) u8 out, contiguous.
 int srcv_speckle_keep(const void* labels, const void* valid, void* counts, void* keep,
-                      int n, int max_size, void* stream) {
+                      int H, int W, long long vs, int max_size, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const long long n = (long long)H * W;
   cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int32_t) * (size_t)n, s);
   if (err != cudaSuccess) return (int)err;
   keep_count_kernel<<<blocks_for(n), THREADS, 0, s>>>(
-      (const int*)labels, (const uint8_t*)valid, (int*)counts, n);
+      (const int*)labels, (const uint8_t*)valid, (int*)counts, H, W, vs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   keep_test_kernel<<<blocks_for(n), THREADS, 0, s>>>(
-      (const int*)labels, (const uint8_t*)valid, (const int*)counts, (uint8_t*)keep, n,
-      max_size);
+      (const int*)labels, (const uint8_t*)valid, (const int*)counts, (uint8_t*)keep, H, W,
+      vs, max_size);
   return (int)cudaGetLastError();
 }
 

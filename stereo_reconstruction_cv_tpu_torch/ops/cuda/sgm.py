@@ -8,8 +8,8 @@ replace the TPU kernels of ``ops/pallas/sgm_pallas.py``:
 - ``sgm_path_sweep`` (``_sweep_vertical``, ``_sweep_vertical_tiled``,
   ``_sweep_hT``, ``_sweep_horizontal``): one path direction, writing or
   adding its (L - C) deltas onto a u16 volume;
-- ``sgm_sweep_wta`` (``_sweep_hT_wta``): the reverse horizontal path with WTA
-  fused, so the aggregated volume S never reaches device memory.
+- ``sgm_sweep_wta`` (``_sweep_hT_wta``): the last direction, FUSED_DIR, with
+  WTA fused, so the aggregated volume S never reaches device memory.
 
 ``sgm_wta`` (``sgm_wta_pallas``) and ``sgm_aggregate``
 (``sgm_aggregate_pallas``, the full S volume) dispatch on the device of the
@@ -40,8 +40,13 @@ from stereo_reconstruction_cv_tpu_torch import _build
 # MODE_SGBM {L, R, UL, U, UR}; 8 = all eight paths.
 DIRS_5 = ((1, 0), (-1, 0), (1, 1), (0, 1), (-1, 1))
 DIRS_8 = ((1, 0), (1, 1), (0, 1), (-1, 1), (-1, 0), (-1, -1), (0, -1), (1, -1))
-# The reverse horizontal path runs last, fused with WTA.
-FUSED_DIR = (-1, 0)
+# The direction that runs last, fused with WTA. S is a sum of integers, so
+# any direction gives the same maps. FUSED_DIR is the one of
+# FUSED_CANDIDATES (in both DIRS_5 and DIRS_8) with the smaller time of
+# path sweeps + fused sweep over configs 2 and 3 on the card (chip_smoke.py,
+# tools/probe_sweep.py; PERF.md, PR 5).
+FUSED_CANDIDATES = ((-1, 0), (0, 1))
+FUSED_DIR = (0, 1)
 
 _BIG = 1 << 29
 
@@ -161,10 +166,12 @@ def directions_for(num_directions: int):
     raise ValueError(f"num_directions must be 5 or 8, got {num_directions}")
 
 
-def delta_groups(num_directions: int):
+def delta_groups(num_directions: int, fused: Tuple[int, int] = FUSED_DIR):
     """Directions swept into u16 volume A (at most 4) and B (the rest), in
-    order; FUSED_DIR is left for the WTA sweep."""
-    rest = [d for d in directions_for(num_directions) if d != FUSED_DIR]
+    order; `fused` is left for the WTA sweep."""
+    if fused not in directions_for(num_directions):
+        raise ValueError(f"fused direction {fused} is not one of the {num_directions} paths")
+    rest = [d for d in directions_for(num_directions) if d != fused]
     return rest[:4], rest[4:]
 
 
@@ -216,9 +223,11 @@ def lanes_k(num_disp: int) -> int:
 
 
 def sweep_vector_path(num_disp: int, *ptrs: int) -> bool:
-    """Whether the path sweep moves each lane's K disparities as one access
-    of 2K bytes: D % K == 0 and every pointer aligned to min(2K, 16) bytes.
-    Otherwise the same kernel takes K scalar accesses."""
+    """Whether a sweep kernel (the path sweep over C and its volume, the
+    fused sweep + WTA over C and every delta volume) moves each lane's K
+    disparities as one access of 2K bytes: D % K == 0 and every pointer
+    aligned to min(2K, 16) bytes. Otherwise the same kernel takes K scalar
+    accesses."""
     k = lanes_k(num_disp)
     align = min(2 * k, 16)
     return num_disp % k == 0 and all(p % align == 0 for p in ptrs)
@@ -248,11 +257,12 @@ def _sweep_group(C: torch.Tensor, acc: torch.Tensor, group, p1: int, p2: int) ->
         path_sweep_cuda(C, acc, dx, dy, p1, p2, accumulate=i > 0)
 
 
-def path_deltas_cuda(C: torch.Tensor, num_directions: int, p1: int, p2: int):
-    """Kernels: every direction but FUSED_DIR, swept group by group
+def path_deltas_cuda(C: torch.Tensor, num_directions: int, p1: int, p2: int,
+                     fused: Tuple[int, int] = FUSED_DIR):
+    """Kernels: every direction but `fused`, swept group by group
     (delta_groups) into one or two u16 delta volumes."""
     vols = []
-    for group in delta_groups(num_directions):
+    for group in delta_groups(num_directions, fused):
         if group:
             vols.append(torch.empty_like(C))
             _sweep_group(C, vols[-1], group, p1, p2)
@@ -296,11 +306,14 @@ def sweep_wta_cuda(C: torch.Tensor, vols: Sequence[torch.Tensor],
     _require_cuda_cost(C)
     if not 1 <= len(vols) <= 2:
         raise ValueError(f"sweep_wta_cuda takes one or two delta volumes, got {len(vols)}")
+    if tuple(direction) not in DIRS_8:
+        raise ValueError(f"direction must be a unit step (a member of DIRS_8), got {direction}")
     for ds in vols:
         if ds.shape != C.shape or ds.dtype != torch.int16 or not ds.is_contiguous():
             raise ValueError("delta volumes must be contiguous int16 tensors of C's shape")
     dsa, dsb = vols[0], (vols[1] if len(vols) > 1 else None)
     H, W, D = C.shape
+    vec = sweep_vector_path(D, *(t.data_ptr() for t in (C, *vols)))
     dev = C.device
     disp = torch.empty((H, W), dtype=torch.float32, device=dev)
     valid = torch.empty((H, W), dtype=torch.bool, device=dev)
@@ -313,7 +326,7 @@ def sweep_wta_cuda(C: torch.Tensor, vols: Sequence[torch.Tensor],
             C.data_ptr(), dsa.data_ptr(), None if dsb is None else dsb.data_ptr(),
             disp.data_ptr(), valid.data_ptr(), best.data_ptr(), minS.data_ptr(),
             H, W, D, direction[0], direction[1], nd, p1, p2, uniqueness_ratio,
-            min_disp, lg, torch.cuda.current_stream().cuda_stream,
+            min_disp, lg, int(vec), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "sgm_sweep_wta")
     _build.count(launches, "sgm_sweep_wta")

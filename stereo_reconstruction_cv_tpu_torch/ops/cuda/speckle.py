@@ -21,7 +21,12 @@ sink label H*W. Components of at most ``max_size`` pixels are dropped.
 the plain version, CUDA tensors launch the kernels (or raise). The plain
 flood stops after ``max_rounds`` rounds, as the reference's does; the kernels
 are always exact (cv2.filterSpeckles), so the two differ only on maps whose
-flood has not converged by then.
+flood has not converged by then. The kernels read ``disp`` and ``valid``
+through their row stride, so a column slice of a wider map is not copied.
+
+``reduced_connectivity`` is the plain mirror of the edges the label kernel
+unites (csrc/speckle.cu): the tests hold that flooding over them reaches the
+same fixpoint as flooding over every edge.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from stereo_reconstruction_cv_tpu_torch import _build
 launches = {"speckle_labels": 0, "speckle_keep": 0}
 
 MAX_ROUNDS = 64
+TILE = 32  # the label kernel's square tile (csrc/speckle.cu TW, TH)
 
 
 # ---------------------------------------------------------------------------
@@ -108,6 +114,28 @@ def speckle_labels_plain(disp: torch.Tensor, valid: torch.Tensor, max_diff: floa
     return lab, False
 
 
+def reduced_connectivity(ch: torch.Tensor, cv: torch.Tensor):
+    """The edges the label kernel unites, as (ch, cv) bool (H, W) masks.
+
+    A pixel joined to its left neighbour inside a tile is kept (the kernel's
+    runs). A vertical edge (p, p - W) is dropped where p - 1 lies in p's
+    tile column and p, p - 1, p - 1 - W, p - W form a joined square: the
+    square's other three edges connect the two pixels. A horizontal edge
+    across a tile's left border is dropped where the square above it closes
+    the same way (its two vertical edges and the crossing one row up), except
+    on a tile's top row. Each dropped edge is implied by a chain that ends in
+    a kept one, so the components stay the same."""
+    H, W = ch.shape
+    dev = ch.device
+    inner_x = (torch.arange(W, device=dev) % TILE != 0)[None, :]
+    inner_y = (torch.arange(H, device=dev) % TILE != 0)[:, None]
+    sq_v = torch.zeros_like(cv)
+    sq_v[1:, 1:] = ch[1:, 1:] & ch[:-1, 1:] & cv[1:, :-1]
+    sq_h = torch.zeros_like(ch)
+    sq_h[1:, 1:] = cv[1:, 1:] & cv[1:, :-1] & ch[:-1, 1:]
+    return ch & ~(sq_h & ~inner_x & inner_y), cv & ~(sq_v & inner_x)
+
+
 def speckle_keep_plain(labels: torch.Tensor, valid: torch.Tensor, max_size: int) -> torch.Tensor:
     """valid & (size of the pixel's component > max_size), bincount form."""
     sizes = torch.bincount(labels.reshape(-1).to(torch.int64), minlength=labels.numel() + 1)
@@ -142,19 +170,27 @@ def _require_cuda(*ts: torch.Tensor) -> torch.device:
     return dev
 
 
+def _rows(t: torch.Tensor):
+    """(t, its row stride in elements) where t's elements within a row are
+    adjacent, as in a column slice of a wider map; else a contiguous copy."""
+    if t.shape[1] > 1 and t.stride(1) != 1:
+        t = t.contiguous()
+    return t, t.stride(0)
+
+
 def speckle_labels_cuda(disp: torch.Tensor, valid: torch.Tensor, max_diff: float) -> torch.Tensor:
     """Kernel: the flood's fixpoint label map (H, W) int32, exactly."""
     _check_maps(disp, valid)
     dev = _require_cuda(disp, valid)
     H, W = disp.shape
-    disp = disp.to(torch.float32).contiguous()
-    valid = valid.contiguous()
+    disp, ds = _rows(disp.to(torch.float32))
+    valid, vs = _rows(valid)
     labels = torch.empty((H, W), dtype=torch.int32, device=dev)
     lib = _build.kernels_library()
     with torch.cuda.device(dev):
         err = lib.srcv_speckle_labels(
-            disp.data_ptr(), valid.data_ptr(), labels.data_ptr(), H, W, float(max_diff),
-            torch.cuda.current_stream().cuda_stream,
+            disp.data_ptr(), valid.data_ptr(), labels.data_ptr(), H, W, ds, vs,
+            float(max_diff), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "speckle_labels")
     _build.count(launches, "speckle_labels")
@@ -169,14 +205,14 @@ def speckle_keep_cuda(labels: torch.Tensor, valid: torch.Tensor, max_size: int) 
     dev = _require_cuda(labels, valid)
     H, W = labels.shape
     labels = labels.contiguous()
-    valid = valid.contiguous()
+    valid, vs = _rows(valid)
     counts = torch.empty(H * W, dtype=torch.int32, device=dev)
     keep = torch.empty((H, W), dtype=torch.bool, device=dev)
     lib = _build.kernels_library()
     with torch.cuda.device(dev):
         err = lib.srcv_speckle_keep(
             labels.data_ptr(), valid.data_ptr(), counts.data_ptr(), keep.data_ptr(),
-            H * W, int(max_size), torch.cuda.current_stream().cuda_stream,
+            H, W, vs, int(max_size), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "speckle_keep")
     _build.count(launches, "speckle_keep")

@@ -9,8 +9,10 @@ the card in the same state and a drift of its clocks shows as a difference
 between a tree's two runs. Each run's full log goes to DIR (default
 ``build/compare_smoke``); the numbers read from the logs are written to
 DIR/summary.json and printed, with the card's name and power limit: kernel
-times at 720p x 128 and 4K x 256, each sweep direction where the log has it,
-and config 2 and config 3 s/pair. Exit code 0 when all four runs exit 0.
+times at 720p x 128 and 4K x 256, each sweep direction, the fused sweep
+with each candidate direction and the speckle kernels on each map (their
+label launches apart) where the log has them, and config 2 and config 3
+s/pair. Exit code 0 when all four runs exit 0.
 """
 
 from __future__ import annotations
@@ -56,6 +58,19 @@ def parse(log: str) -> dict:
     for m in re.finditer(r"\[(\S+) \d+x\d+x\d+\] sgm_path_sweep per direction: (\{.*\})", log):
         for d, v in json.loads(m.group(2)).items():
             out[f"sgm_path_sweep {m.group(1)} ({d}) ms"] = v["ms"]
+    for m in re.finditer(r"\[(\S+) \d+x\d+x\d+ \d-dir\] fused direction candidates.*?: (\{.*\})",
+                         log):
+        for d, v in json.loads(m.group(2)).items():
+            for k in ("sweeps_ms", "sweep_wta_ms", "sum_ms"):
+                out[f"fused {m.group(1)} ({d}) {k[:-3]} ms"] = v[k]
+    for m in re.finditer(r"\[([^\]]+?) \(\d+, \d+\)\] speckle_labels: equal to the plain "
+                         r"fixpoint; kernel ([\d.]+) ms", log):
+        out[f"speckle_labels {m.group(1)} ms"] = float(m.group(2))
+    for m in re.finditer(r"\[([^\]]+)\] speckle_keep: equal .*?; kernel ([\d.]+) ms", log):
+        out[f"speckle_keep {m.group(1)} ms"] = float(m.group(2))
+    for m in re.finditer(r"\[([^\]]+)\] speckle_labels launches \(ms, profiler\): (\{.*\})", log):
+        for k, v in json.loads(m.group(2)).items():
+            out[f"speckle_labels {m.group(1)} {k} ms"] = v
     m = re.search(r'^(\{"kernels": .*\})$', log, re.M)
     if m:
         for k in json.loads(m.group(1))["kernels"]:

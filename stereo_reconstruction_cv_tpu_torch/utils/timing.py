@@ -9,11 +9,13 @@ times its replay, which leaves only the kernels; since the wrappers count no
 captured call, it adds the replayed launches to the count it is given. All
 need a CUDA device;
 none falls back to a host clock. ``card`` names the card and its power
-limit, to be printed beside the times.
+limit, to be printed beside the times. ``kernel_ms`` times each kernel
+that a call launches apart, by name, from ``torch.profiler``.
 """
 
 from __future__ import annotations
 
+import re
 import statistics
 import subprocess
 from typing import Callable
@@ -88,3 +90,24 @@ def graph_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 2,
         launches, name = counts
         launches[name] += 2 * iters  # the two replays
     return a.elapsed_time(b) / iters
+
+
+def kernel_ms(fn: Callable[[], object], reps: int = 5) -> dict:
+    """{kernel name: mean device ms per call of fn()} from torch.profiler
+    over `reps` eager calls (after one warm call): the launches of one
+    wrapper timed apart."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            m = re.search(r"(\w+_kernel)", e.name)
+            name = m.group(1) if m else e.name[:40]
+            out[name] = out.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / reps
+    return out

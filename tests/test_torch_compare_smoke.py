@@ -57,3 +57,26 @@ def test_parse_falls_back_or_omits(drop):
 def test_main_refuses_a_tree_without_chip_smoke(tmp_path, capsys):
     assert CS.main([str(tmp_path), "--out", str(tmp_path / "out")]) == 2
     assert "no chip_smoke.py" in capsys.readouterr().out
+
+
+def test_parse_reads_fused_candidates_and_speckle_lines():
+    log = "\n".join([
+        '[720p 720x1152x128 8-dir] fused direction candidates, equal maps (FUSED_DIR -1,0): '
+        '{"-1,0": {"sweeps_ms": 1.7, "sweep_wta_ms": 0.4, "sum_ms": 2.1}, '
+        '"0,1": {"sweeps_ms": 1.6, "sweep_wta_ms": 0.45, "sum_ms": 2.05}}',
+        "[720p frame (720, 1152)] speckle_labels: equal to the plain fixpoint; kernel 0.031 ms, "
+        "plain 20.5 ms; 829440 valid pixels in 12 components",
+        "[720p frame] speckle_keep: equal for T in [20, 100]; kernel 0.013 ms, plain 0.5 ms; "
+        "keep share at T=100 0.9",
+        '[720p frame] speckle_labels launches (ms, profiler): {"labels_local_kernel": 0.02, '
+        '"labels_flatten_kernel": 0.008}',
+    ])
+    got = CS.parse(log)
+    assert got == {
+        "fused 720p (-1,0) sweeps ms": 1.7, "fused 720p (-1,0) sweep_wta ms": 0.4,
+        "fused 720p (-1,0) sum ms": 2.1, "fused 720p (0,1) sweeps ms": 1.6,
+        "fused 720p (0,1) sweep_wta ms": 0.45, "fused 720p (0,1) sum ms": 2.05,
+        "speckle_labels 720p frame ms": 0.031, "speckle_keep 720p frame ms": 0.013,
+        "speckle_labels 720p frame labels_local_kernel ms": 0.02,
+        "speckle_labels 720p frame labels_flatten_kernel ms": 0.008,
+    }

@@ -180,6 +180,22 @@ def _speckle_case(kind, H, W, seed=0):
         disp = np.broadcast_to(np.arange(W) // 16 * 20.0, (H, W)).astype(np.float32)  # bands
     elif kind == "all invalid":
         valid = np.zeros((H, W), bool)
+    elif kind == "constant":  # one component
+        valid = np.ones((H, W), bool)
+        disp[:] = 7.0
+    elif kind == "ramp":  # one component: neighbours 0.7 apart, within max_diff
+        valid = np.ones((H, W), bool)
+        disp = (0.7 * np.add.outer(np.arange(H), np.arange(W))).astype(np.float32)
+    elif kind == "comb down":  # teeth in the first tile row, joined below its border
+        disp[:] = 7.0
+        valid = np.zeros((H, W), bool)
+        valid[:32, ::3] = True
+        valid[32:33, :] = True
+    elif kind == "comb right":  # teeth in the first tile column, joined right of it
+        disp[:] = 7.0
+        valid = np.zeros((H, W), bool)
+        valid[::3, :32] = True
+        valid[:, 32:33] = True
     elif kind == "checkerboard":
         valid = (np.add.outer(np.arange(H), np.arange(W)) % 2) == 0
     elif kind == "serpentine":  # one-pixel stripes joined at alternate ends
@@ -254,3 +270,111 @@ def test_op_chain_kernel_equals_plain(dev, H, W, dtype):
         torch.cuda.synchronize()
         assert got.dtype == dtype and torch.equal(got.view(torch.int16) if dtype == torch.uint16 else got,
                                                   ref.view(torch.int16) if dtype == torch.uint16 else ref)
+
+
+@pytest.mark.parametrize("kind", ["constant", "ramp"])
+@pytest.mark.parametrize("H,W", [(32, 32), (64, 96), (96, 64), (33, 65), (130, 250), (1, 70),
+                                 (70, 1)])
+def test_speckle_one_component_equals_plain(dev, kind, H, W):
+    """Maps that are one component, as the main path's nearly are: tile
+    multiples and ragged sizes."""
+    disp_np, valid_np = _speckle_case(kind, H, W)
+    disp = torch.from_numpy(disp_np).to(dev)
+    valid = torch.from_numpy(valid_np).to(dev)
+    labels = SPK.speckle_labels_cuda(disp, valid, 5.0)
+    ref, converged = SPK.speckle_labels_plain(disp, valid, 5.0, max_rounds=4096)
+    torch.cuda.synchronize()
+    assert converged and torch.equal(labels, ref)
+    assert bool((labels == 0).all())
+
+
+@pytest.mark.parametrize("kind", ["comb down", "comb right"])
+@pytest.mark.parametrize("H,W", [(40, 100), (100, 40), (64, 64)])
+def test_speckle_comb_joined_across_tile_borders_equals_plain(dev, kind, H, W):
+    """Teeth that meet only across a tile border: one component."""
+    disp_np, valid_np = _speckle_case(kind, H, W)
+    disp = torch.from_numpy(disp_np).to(dev)
+    valid = torch.from_numpy(valid_np).to(dev)
+    labels = SPK.speckle_labels_cuda(disp, valid, 5.0)
+    ref, converged = SPK.speckle_labels_plain(disp, valid, 5.0, max_rounds=4096)
+    torch.cuda.synchronize()
+    assert converged and torch.equal(labels, ref)
+    assert int(torch.unique(labels[valid]).numel()) == 1
+
+
+@pytest.mark.parametrize("kind", ["random", "ramp", "serpentine"])
+def test_speckle_kernels_read_column_slices(dev, kind):
+    """A column slice of a wider map (the SGBM map without its margin) gives
+    the labels and keep mask of its contiguous copy."""
+    disp_np, valid_np = _speckle_case(kind, 75, 150)
+    disp = torch.from_numpy(disp_np).to(dev)
+    valid = torch.from_numpy(valid_np).to(dev)
+    for x0 in (1, 19, 64):
+        d, v = disp[:, x0:], valid[:, x0:]
+        assert not d.is_contiguous()
+        labels = SPK.speckle_labels_cuda(d, v, 5.0)
+        ref = SPK.speckle_labels_cuda(d.contiguous(), v.contiguous(), 5.0)
+        keep = SPK.speckle_keep_cuda(labels, v, 20)
+        torch.cuda.synchronize()
+        assert torch.equal(labels, ref)
+        assert torch.equal(keep, SPK.speckle_keep_plain(ref, v.contiguous(), 20))
+
+
+# csrc/sgm.cu WTA_STAGES: the fused sweep's steps in flight, by K (K = 1
+# loads each step itself).
+WTA_STAGES = {1: 16, 2: 16, 4: 16, 8: 8, 16: 4}
+
+
+def _fused_equal_plain(C, nd, direction, md=2, vols=None):
+    """sgm_sweep_wta with `direction` last against its plain version."""
+    C32 = C.to(torch.int32)
+    groups = [g for g in SK.delta_groups(nd, direction) if g]
+    if vols is None:
+        vols = SK.path_deltas_cuda(C, nd, P1, P2, fused=direction)
+    partial = sum(SK.path_delta_plain(C32, dx, dy, P1, P2) for g in groups for dx, dy in g)
+    got = SK.sweep_wta_cuda(C, vols, nd, P1, P2, 10, md, direction)
+    ref = SK.sweep_wta_plain(C32, partial, nd, P1, P2, 10, md, direction)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b), (tuple(C.shape), nd, direction)
+
+
+@pytest.mark.parametrize("direction", [(-1, 0), (0, 1)])
+@pytest.mark.parametrize("D", [17, 33, 100, 128, 250, 256, 512])
+@pytest.mark.parametrize("extra", [-1, 0, 1, "33", "64"])
+def test_sweep_wta_path_lengths_equal_plain(dev, direction, D, extra):
+    """Paths one short of, at and one past the ring depth P, and past one and
+    two 32-step store buffers; D % K != 0 (33, 250) takes the general path."""
+    P = WTA_STAGES[SK.lanes_k(D)]
+    n = int(extra) if isinstance(extra, str) else P + extra
+    H, W = (3, n) if direction[1] == 0 else (n, 3)
+    rng = np.random.default_rng(D * 100 + n)
+    C = torch.from_numpy(rng.integers(0, 20000, (H, W, D), dtype=np.int16)).to(dev)
+    for nd in (5, 8):
+        _fused_equal_plain(C, nd, direction)
+
+
+@pytest.mark.parametrize("direction", [(-1, 0), (0, 1)])
+@pytest.mark.parametrize("H,W", [(1, 1), (1, 45), (45, 1), (7, 9)])
+@pytest.mark.parametrize("D", [1, 64, 256])
+def test_sweep_wta_small_frames_equal_plain(dev, direction, H, W, D):
+    rng = np.random.default_rng(D + H * W)
+    C = torch.from_numpy(rng.integers(0, 20000, (H, W, D), dtype=np.int16)).to(dev)
+    for nd in (5, 8):
+        _fused_equal_plain(C, nd, direction)
+
+
+@pytest.mark.parametrize("direction", [(-1, 0), (0, 1)])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_sweep_wta_unaligned_second_volume_takes_the_scalar_path(dev, direction, D):
+    """A second delta volume 2 bytes off an aligned address: the same
+    kernel's scalar path."""
+    H, W = 13, 41
+    rng = np.random.default_rng(D + 7)
+    C = torch.from_numpy(rng.integers(0, 20000, (H, W, D), dtype=np.int16)).to(dev)
+    vols = SK.path_deltas_cuda(C, 8, P1, P2, fused=direction)
+    buf = torch.empty(H * W * D + 1, dtype=torch.int16, device=dev)
+    off = buf[1:].view(H, W, D)
+    off.copy_(vols[1])
+    assert not SK.sweep_vector_path(D, C.data_ptr(), vols[0].data_ptr(), off.data_ptr())
+    _fused_equal_plain(C, 8, direction, vols=[vols[0], off])

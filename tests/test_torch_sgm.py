@@ -6,6 +6,8 @@ mode. Integer outputs are bit-exact and the f32 disparity is equal (same f32
 operations in the same order).
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -127,3 +129,49 @@ def test_lanes_k_covers_d_with_32_lanes(D, k):
 ])
 def test_sweep_vector_path_choice(D, ptrs, vec):
     assert SK.sweep_vector_path(D, *ptrs) is vec
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_case(ndirs):
+    """C, the plain maps and the reference TPU chain's maps (interpret mode)."""
+    C = _volume(60 + ndirs, (21, 27, 16))
+    ref = sgm_wta_pallas(jnp.asarray(C), P1, P2, ndirs, 10, 1, interpret=True)
+    plain = SK.sgm_wta_plain(torch.from_numpy(C), P1, P2, ndirs, 10, 1)
+    return torch.from_numpy(C), plain, [np.asarray(r) for r in ref]
+
+
+@pytest.mark.parametrize("ndirs,direction",
+                         [(5, d) for d in SK.DIRS_5] + [(8, d) for d in SK.DIRS_8])
+def test_any_fused_direction_gives_the_same_maps(ndirs, direction):
+    """S is a sum of integers, so whichever direction the fused sweep + WTA
+    runs last, with the others' deltas summed beforehand, the four maps are
+    the same bits: those of the plain chain and of sgm_wta_pallas."""
+    C, plain, ref = _fused_case(ndirs)
+    ga, gb = SK.delta_groups(ndirs, direction)
+    assert len(ga) <= 4 and len(gb) <= 4 and direction not in ga + gb
+    assert sorted(ga + gb + [direction]) == sorted(SK.directions_for(ndirs))
+    partial = sum(SK.path_delta_plain(C, dx, dy, P1, P2) for dx, dy in ga + gb)
+    got = SK.sweep_wta_plain(C, partial, ndirs, P1, P2, 10, 1, direction=direction)
+    for g, p, r in zip(got, plain, ref):
+        assert torch.equal(g, p)
+        np.testing.assert_array_equal(g.numpy(), r)
+
+
+def test_delta_groups_refuse_a_fused_direction_outside_the_paths():
+    with pytest.raises(ValueError, match="fused direction"):
+        SK.delta_groups(5, (0, -1))
+    assert SK.delta_groups(8) == SK.delta_groups(8, SK.FUSED_DIR)
+
+
+def test_probe_tool_pair_and_refusal_without_a_card(monkeypatch, capsys):
+    """tools/probe_sweep: its pair has the known shift, it times every
+    candidate fused direction, and without a CUDA device main() exits 2."""
+    from stereo_reconstruction_cv_tpu_torch.tools import probe_sweep as tool
+
+    left, right = tool.textured_pair(np.random.default_rng(1), 9, 50, 7)
+    np.testing.assert_array_equal(left[:, 7:], right[:, :-7])
+    assert SK.FUSED_DIR in SK.FUSED_CANDIDATES
+    assert all(d in SK.DIRS_5 and d in SK.DIRS_8 for d in SK.FUSED_CANDIDATES)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert tool.main() == 2
+    assert "CUDA" in capsys.readouterr().out

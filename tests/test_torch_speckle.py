@@ -230,3 +230,88 @@ def test_cpu_dispatch_and_argument_checks():
         SPK.speckle_filter(_t(disp), _t(valid[:, :5]), 3, MAX_DIFF)
     with pytest.raises(ValueError, match="CUDA"):
         SPK.speckle_labels_cuda(_t(disp), _t(valid), MAX_DIFF)
+
+
+def _edge_case(kind, H, W, seed=0):
+    """Maps for the reduced edge set: (disp f32, valid bool), with MAX_DIFF."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W]
+    valid = np.ones((H, W), bool)
+    if kind == "random":
+        return _speckled(seed, H, W, p_invalid=0.3, block=2)
+    if kind == "all valid":
+        disp = np.full((H, W), 7.0)
+    elif kind == "ramp":  # one component: neighbours differ by 0.7 <= MAX_DIFF
+        disp = 0.7 * (xx + yy)
+    elif kind == "checkerboard":  # 5x5 blocks of disparities 30 apart
+        disp = ((yy // 5 + xx // 5) % 2) * 30.0
+        valid = rng.random((H, W)) >= 0.1
+    elif kind == "banded":  # vertical bands of 13 columns, 20 apart
+        disp = xx // 13 * 20.0
+    elif kind == "comb":  # teeth on every third column, joined by the last row only
+        disp = np.full((H, W), 7.0)
+        valid = (xx % 3 == 0) | (yy == H - 1)
+    elif kind == "serpentine":
+        return _serpentine(H, W, (H - 1) // 2)
+    else:
+        raise ValueError(kind)
+    return np.where(valid, disp, 0.0).astype(np.float32), valid
+
+
+def _flood_to_fixpoint(valid, ch, cv):
+    lab = SPK.initial_labels(valid)
+    for _ in range(4096):
+        new = SPK.flood_round(lab, ch, cv)
+        if torch.equal(new, lab):
+            return lab
+        lab = new
+    raise AssertionError("flood did not converge")
+
+
+@pytest.mark.parametrize("H,W", [(70, 101), (33, 65)])
+@pytest.mark.parametrize("kind", ["random", "all valid", "ramp", "checkerboard", "banded",
+                                  "comb", "serpentine"])
+def test_reduced_edges_reach_the_same_fixpoint(kind, H, W):
+    """The edges the label kernel unites (runs, the vertical edges no joined
+    square closes, the tile-border rule at tile width 32) connect the same
+    components as every edge: the flood over them reaches the same fixpoint,
+    which is the reference's."""
+    disp, valid = _edge_case(kind, H, W)
+    ch, cv = SPK.connectivity(_t(disp), _t(valid), MAX_DIFF)
+    ch_k, cv_k = SPK.reduced_connectivity(ch, cv)
+    assert not (ch_k & ~ch).any() and not (cv_k & ~cv).any()
+    full = _flood_to_fixpoint(_t(valid), ch, cv)
+    reduced = _flood_to_fixpoint(_t(valid), ch_k, cv_k)
+    assert torch.equal(reduced, full)
+    np.testing.assert_array_equal(full.numpy(), _ref_fixpoint(disp, valid)[0])
+    if kind in ("all valid", "ramp"):
+        # One component: about one vertical edge per tile column and row pair.
+        assert int(cv_k.sum()) <= -(-W // SPK.TILE) * H
+        assert int(ch_k.sum()) < int(ch.sum())
+
+
+def test_reduced_edges_keep_tile_corners():
+    """At a tile's corner pixel neither border rule drops an edge, so a pixel
+    joined only to its left and upper neighbours stays in their component."""
+    T = SPK.TILE
+    valid = np.zeros((2 * T, 2 * T), bool)
+    valid[T - 1:T + 1, T - 1:T + 1] = True  # a joined 2x2 square on the corner
+    disp = np.where(valid, 3.0, 0.0).astype(np.float32)
+    ch, cv = SPK.connectivity(_t(disp), _t(valid), MAX_DIFF)
+    ch_k, cv_k = SPK.reduced_connectivity(ch, cv)
+    assert bool(ch_k[T, T]) and bool(cv_k[T, T])
+    lab = _flood_to_fixpoint(_t(valid), ch_k, cv_k).numpy()
+    assert (lab[valid] == (T - 1) * 2 * T + T - 1).all()
+
+
+def test_rows_keep_column_slices_uncopied():
+    """The label and keep kernels read a column slice through its row
+    stride; only a map whose rows are not unit-stride is copied."""
+    full = torch.zeros((6, 40), dtype=torch.float32)
+    view = full[:, 9:]
+    t, stride = SPK._rows(view)
+    assert t.data_ptr() == view.data_ptr() and stride == 40
+    t, stride = SPK._rows(full.t())
+    assert t.is_contiguous() and stride == 6
+    t, stride = SPK._rows(full[:, 3:4])
+    assert t.data_ptr() == full[:, 3:4].data_ptr() and stride == 40
