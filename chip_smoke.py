@@ -55,8 +55,12 @@ Phases:
                chain's disparity map equals the main path's; the speckle
                labels against the plain flood's fixpoint and the keep mask
                against the host filter on the frame's maps, a speckled random
-               map and a serpentine of 40 turns; kernel times, each
-               path-sweep direction alone
+               map, a serpentine of 40 turns and a map of single-pixel
+               components; config 3's rectify_remap and
+               reproject_image_to_3d on the card against the same calls on
+               the CPU (the remap within 1 LSB, the points bit-equal or
+               within F32_RTOL); kernel times, each path-sweep direction
+               alone
 Each main path of phases 4, 4b and 5 (config 2 with device, host and no
 speckle, the 720p CLI chain, the two tools, the 4K pair -> PLY, config 3's
 chain) runs with the launch counts zeroed just before it and read just after:
@@ -150,6 +154,10 @@ OPS_PER = {
 }
 WTA_VARIANTS = "shipped,shipped2,nat,2nat,nat:8:128,8:128:dot,8:128:bfly,8:512:dot,8:512:bfly"
 SPECKLE_DIFF = 5.0  # max_diff of the synthetic speckle maps
+# Relative error allowed between the card's and the CPU's reprojected points
+# if they are not bit-equal: a few f32 ulps, for an operation order or an FMA
+# contraction that differs between torch's CUDA and CPU kernels.
+F32_RTOL = 4.0e-7
 
 
 def log(msg: str) -> None:
@@ -163,6 +171,13 @@ def speckled_map(rng, H: int, W: int, p_invalid: float = 0.4, block: int = 1):
     disp = np.repeat(np.repeat(coarse, block, 0), block, 1)[:H, :W].astype(np.float32)
     valid = rng.random((H, W)) >= p_invalid
     return np.where(valid, disp, 0.0).astype(np.float32), valid
+
+
+def singletons_map(H: int, W: int):
+    """(disp f32, valid bool): every pixel valid and its own component, the
+    disparities a checkerboard of 10 and 40 (no two neighbours joined)."""
+    disp = np.where(np.add.outer(np.arange(H), np.arange(W)) % 2 == 0, 10.0, 40.0)
+    return disp.astype(np.float32), np.ones((H, W), bool)
 
 
 def serpentine_map(rng, H: int, W: int, turns: int):
@@ -427,6 +442,9 @@ def main() -> int:
         for T in Ts:
             keep = SPK.speckle_keep_cuda(labels, valid, T)
             note("speckle_keep", max_err(torch, keep, SPK.speckle_keep_plain(ref, valid, T)))
+        # The keep kernels leave their count cells zero for the next call.
+        if bool(SPK.count_cells(labels.device, labels.numel()).any()):
+            raise AssertionError(f"{label}: speckle_keep left nonzero count cells")
         T = Ts[-1]
         times = (graph_ms(lambda: SPK.speckle_labels_cuda(disp, valid, max_diff), reps),
                  cuda_ms(lambda: SPK.speckle_labels_plain(disp, valid, max_diff), 3),
@@ -826,6 +844,8 @@ def main() -> int:
             frame.update(rl=rl, rr=rr, dmap=dmap)
             return pts, n
 
+        frame.update(left=left, right=right, Kt=Kt, res=res)
+
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -995,18 +1015,46 @@ def main() -> int:
         Wc = W4 - md - D
         maps = [("4K frame", d3[:, md + D:], v3[:, md + D:], rng_diff)]
         for label, (dn, vn) in (("4K speckled", speckled_map(rng, H, Wc, 0.3, 4)),
-                                ("4K serpentine", serpentine_map(rng, H, Wc, 40))):
+                                ("4K serpentine", serpentine_map(rng, H, Wc, 40)),
+                                ("4K singletons", singletons_map(H, Wc))):
             maps.append((label, torch.from_numpy(dn).to(dev), torch.from_numpy(vn).to(dev),
                          SPECKLE_DIFF))
         speckle_ms = {}
         for label, dm, vm, diff in maps:
-            times = check_speckle(label, dm, vm, (20, T), reps=5, max_diff=diff)
+            Ts = (0, 20, T) if label == "4K singletons" else (20, T)
+            times = check_speckle(label, dm, vm, Ts, reps=5, max_diff=diff)
             keep = SPK.speckle_filter(dm, vm, T, diff)
             if not torch.equal(keep, DP.filter_speckles_host(dm, vm, T, diff)):
                 raise AssertionError(f"{label}: the speckle kernels' mask differs from the host filter's")
             speckle_ms[label] = dict(zip(("labels", "labels_plain", "keep", "keep_plain"), times))
-        log("[4K] speckle keep masks equal the host filter's on all three maps")
+        log(f"[4K] speckle keep masks equal the host filter's on all {len(maps)} maps")
         log("4K speckle times (ms): " + json.dumps(speckle_ms))
+
+        # Config 3's rectify and reproject on the card against the same calls
+        # on the CPU: the remap within 1 LSB (the inverse rotation and the f32
+        # weights may round differently), the points bit-equal or within F32_RTOL.
+        Kt, res = frame["Kt"], frame["res"]
+        for name, img, R, P, got in (("left", frame["left"], res.R1, res.P1, frame["rl"]),
+                                     ("right", frame["right"], res.R2, res.P2, frame["rr"])):
+            ref = RC.rectify_remap(torch.from_numpy(img), Kt, None, R, P)
+            diff = (got.cpu().to(torch.int16) - ref.to(torch.int16)).abs()
+            log(f"[4K] rectify_remap {name} on the card vs the CPU: max |diff| "
+                f"{int(diff.max().item())} LSB, equal share {(diff == 0).double().mean().item():.6f}")
+            if int(diff.max().item()) > 1:
+                raise AssertionError(f"4K rectify_remap ({name}): the card differs from the CPU by more than 1 LSB")
+        Q = res.Q.to(torch.float32)
+        got = G.reproject_image_to_3d(d3, Q.to(dev)).cpu()
+        ref = G.reproject_image_to_3d(d3.cpu(), Q)
+        fin = torch.isfinite(ref)
+        if not torch.equal(torch.isfinite(got), fin):
+            raise AssertionError("4K reproject_image_to_3d: finite points differ between the card and the CPU")
+        same = torch.equal(got.view(torch.int32), ref.view(torch.int32))
+        rel = float(((got[fin] - ref[fin]).abs() / ref[fin].abs().clamp_min(1e-30)).max().item()) if fin.any() else 0.0
+        log(f"[4K] reproject_image_to_3d on the card vs the CPU: "
+            f"{'bit-equal' if same else 'not bit-equal'}, max relative error {rel:.3e} "
+            f"over {int(fin.sum().item())} finite coordinates")
+        if rel > F32_RTOL:
+            raise AssertionError(f"4K reproject_image_to_3d: relative error {rel} > {F32_RTOL}")
 
     if failures:
         log(f"FAILED phases: {failures}")

@@ -139,7 +139,7 @@ def _declare_kernels(lib: ctypes.CDLL) -> None:
     lib.srcv_cost_volume.argtypes = [P] * 5 + [I] * 9 + [P]
     lib.srcv_sgm_path_sweep.argtypes = [P, P] + [I] * 9 + [P]
     lib.srcv_sgm_sweep_wta.argtypes = [P] * 7 + [I] * 12 + [P]
-    lib.srcv_lr_check.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
+    lib.srcv_lr_check.argtypes = [P] * 4 + [I] * 7 + [P]
     lib.srcv_speckle_labels.argtypes = [P, P, P, I, I, LL, LL, ctypes.c_float, P]
     lib.srcv_speckle_keep.argtypes = [P, P, P, P, I, I, LL, I, P]
     lib.srcv_wta.argtypes = [P] * 3 + [I] * 11 + [P] * 6

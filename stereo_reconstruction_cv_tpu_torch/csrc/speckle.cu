@@ -41,10 +41,26 @@
 //   a chain of joined edges that ends in a kept one (ops/cuda/speckle.py:
 //   reduced_connectivity is the plain mirror of the kept edge set).
 //
-//   srcv_speckle_keep: a histogram of labels over the VALID pixels only (the
-//   invalid sink would put millions of atomics on one address), warp-
-//   aggregated with __match_any_sync because a disparity map is mostly one
-//   giant component; then keep = valid & (count[label] > max_size).
+//   srcv_speckle_keep, two launches over count cells (one 64-bit cell per
+//   pixel index, cached by the wrapper, zero between calls):
+//     count: each valid pixel adds 1 to the low word of its root's cell;
+//     test:  keep = valid & (low word of the label's cell > max_size), and
+//            each valid pixel adds 1 to the high word, the readers. The add
+//            that brings the readers up to the count is the root's last
+//            reader: it stores 0, so the cells are zero again when the
+//            launch ends, with no memset and no pass over all H*W cells.
+//   Both passes aggregate before they touch a cell: a thread keeps a run of
+//   one label over its pixels, a warp whose lanes end on one label adds
+//   once, and runs of TABLE_RUN pixels or more go into a shared (label,
+//   count) table that is flushed once at the end of the block; a shorter
+//   run (a speckle), or one that finds no slot within PROBES, adds to its
+//   cell directly, so any map stays exact. The test pass gathers every
+//   pixel's count before it adds any reader, and a run or a block table
+//   entry that holds all of a label's readers zeroes its cell with a plain
+//   store (no atomic for a speckle inside one thread's pixels). A map
+//   that is one component (the main path's nearly is) costs one global
+//   atomic per block and pass, where the first design issued one per warp
+//   on the same address.
 //
 //   disp and valid are read through a row stride (in elements), so a column
 //   slice of a wider map (the SGBM map without its left margin) needs no
@@ -56,7 +72,16 @@
 // maps, nearly one component, each walked uncompressed chains and retried
 // atomicMin on the same few roots: 0.146 ms on a 720p map, 1.15 ms at 4K
 // for the local kernel alone. No fast-math: the connectivity test is an
-// exact f32 compare.
+// exact f32 compare. The size test's function moves 6 bytes a pixel (i32
+// label, u8 valid in, u8 keep out), 0.0139 ms on the 4K frame; its two
+// passes read the labels and valid twice, 11 bytes a pixel. Measured on an
+// NVIDIA H100 80GB HBM3 at 700 W (tools/probe_sweep.py, CUDA-graph
+// replay): 0.043 ms on the 4K frame, 0.32 of that bound, and 0.008-0.009 ms
+// on the 720p one. The first design cleared all H*W counts per call (a
+// 31 MB memset at 4K) and issued one atomic per warp on the giant
+// component's root: 0.234 and 0.027 ms. Maps of many small components pay
+// for the reader counts: 1.6x the first design's time on a random speckle
+// map (0.021 against 0.013 ms at 720p).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -237,27 +262,176 @@ labels_flatten_kernel(const uint8_t* __restrict__ valid, int* parent, int H, int
   parent[i] = x;
 }
 
-__global__ void __launch_bounds__(THREADS)
-keep_count_kernel(const int* __restrict__ labels, const uint8_t* __restrict__ valid,
-                  int* __restrict__ counts, int H, int W, long long vs) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = i / W;
-  const bool active = i < H * W && valid[row * vs + (i - row * W)];
-  const unsigned members = __ballot_sync(FULL, active);
-  if (!active) return;
-  const int lab = labels[i];
-  const unsigned peers = __match_any_sync(members, lab);
-  if ((threadIdx.x & 31) == __ffs(peers) - 1) atomicAdd(&counts[lab], __popc(peers));
+// The keep passes: KEEP_PPT pixels a thread in groups of V (4: vector
+// accesses where W % 4 == 0 and the maps are aligned; 1: any map), each
+// block a contiguous range of KEEP_THREADS * KEEP_PPT pixels.
+constexpr int KEEP_THREADS = 256;
+constexpr int KEEP_PPT = 8;
+constexpr int TABLE_BITS = 9;
+constexpr int TABLE = 1 << TABLE_BITS;  // a block's (label, count) slots
+constexpr int PROBES = 4;
+constexpr int TABLE_RUN = 2;  // shorter runs (speckles) add to their cells directly
+constexpr int EMPTY = -1;
+
+// Adds n to a count cell: the low word in the count pass; in the test pass
+// the high word, zeroing the cell when its readers reach its count.
+template <bool TEST>
+__device__ __forceinline__ void cell_add(unsigned long long* cells, int lab, unsigned n) {
+  if (!TEST) {
+    atomicAdd(&cells[lab], (unsigned long long)n);
+    return;
+  }
+  const unsigned long long old = atomicAdd(&cells[lab], (unsigned long long)n << 32);
+  if ((unsigned)(old >> 32) + n == (unsigned)old) cells[lab] = 0ull;
 }
 
-__global__ void __launch_bounds__(THREADS)
-keep_test_kernel(const int* __restrict__ labels, const uint8_t* __restrict__ valid,
-                 const int* __restrict__ counts, uint8_t* __restrict__ keep, int H, int W,
+// A run of n pixels of one label: into the block's table (open addressing)
+// when it is long enough and finds a slot, else straight to the cell. In the
+// test pass a run that holds all `count` readers of its label (a speckle
+// inside one thread's pixels) zeroes the cell with a plain store.
+template <bool TEST>
+__device__ __forceinline__ void run_add(int* keys, unsigned* vals, unsigned long long* cells,
+                                        int lab, unsigned n, unsigned count) {
+  if (TEST && n == count) {
+    cells[lab] = 0ull;
+    return;
+  }
+  if (n >= TABLE_RUN) {
+    unsigned h = ((unsigned)lab * 2654435761u) >> (32 - TABLE_BITS);
+    for (int p = 0; p < PROBES; ++p, h = (h + 1) & (TABLE - 1)) {
+      int k = ((volatile int*)keys)[h];
+      if (k == EMPTY) k = atomicCAS(&keys[h], EMPTY, lab);
+      if (k == EMPTY || k == lab) {
+        atomicAdd(&vals[h], n);
+        return;
+      }
+    }
+  }
+  cell_add<TEST>(cells, lab, n);
+}
+
+template <int V, bool TEST>
+__global__ void __launch_bounds__(KEEP_THREADS)
+keep_pass_kernel(const int* __restrict__ labels, const uint8_t* __restrict__ valid,
+                 unsigned long long* cells, uint8_t* __restrict__ keep, int H, int W,
                  long long vs, int max_size) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= H * W) return;
-  const int row = i / W;
-  keep[i] = valid[row * vs + (i - row * W)] && counts[labels[i]] > max_size;
+  constexpr int G = KEEP_PPT / V;  // groups a thread
+  __shared__ int keys[TABLE];
+  __shared__ unsigned vals[TABLE];
+  for (int k = threadIdx.x; k < TABLE; k += KEEP_THREADS) {
+    keys[k] = EMPTY;
+    vals[k] = 0;
+  }
+  const long long n = (long long)H * W;
+  const long long start = (long long)blockIdx.x * KEEP_THREADS * KEEP_PPT;
+  // All loads first, so that each thread has them in flight together.
+  int lab[G][V];
+  uint8_t v[G][V];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const long long i = start + ((long long)g * KEEP_THREADS + threadIdx.x) * V;
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[g][j] = 0;
+    if (i >= n) continue;
+    const long long row = i / W;
+    const uint8_t* vp = valid + row * vs + (i - row * W);
+    if constexpr (V == 4) {
+      const int4 t = *reinterpret_cast<const int4*>(labels + i);
+      lab[g][0] = t.x; lab[g][1] = t.y; lab[g][2] = t.z; lab[g][3] = t.w;
+      const uint32_t b = *reinterpret_cast<const uint32_t*>(vp);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[g][j] = (b >> (8 * j)) & 0xff;
+    } else {
+      lab[g][0] = labels[i];
+      v[g][0] = *vp;
+    }
+  }
+  // Test: every pixel's count (the low word of its label's cell), all
+  // gathers in flight together, then keep. Each value is used before this
+  // thread adds to any reader count, so no read can follow its cell's zeroing.
+  const unsigned* lo = reinterpret_cast<const unsigned*>(cells);
+  unsigned cnt[G][V];
+  if (TEST) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) cnt[g][j] = v[g][j] ? lo[2 * (size_t)lab[g][j]] : 0u;
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const long long i = start + ((long long)g * KEEP_THREADS + threadIdx.x) * V;
+      uint32_t bits = 0;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        bits |= (uint32_t)(v[g][j] && (int)cnt[g][j] > max_size) << (8 * j);
+      }
+      if (i >= n) continue;
+      if constexpr (V == 4) {
+        *reinterpret_cast<uint32_t*>(keep + i) = bits;
+      } else {
+        keep[i] = (uint8_t)bits;
+      }
+    }
+  }
+  __syncthreads();  // the table is initialised
+  // The thread's run of one label over its valid pixels (test: and the
+  // label's count).
+  int run = EMPTY;
+  unsigned run_n = 0, run_count = 0;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      if (!v[g][j]) continue;
+      if (lab[g][j] != run) {
+        if (run_n) run_add<TEST>(keys, vals, cells, run, run_n, run_count);
+        run = lab[g][j];
+        run_n = 0;
+        if (TEST) run_count = cnt[g][j];
+      }
+      ++run_n;
+    }
+  }
+  // The last runs: a warp whose lanes all end on one label adds once.
+  const unsigned lane = threadIdx.x & 31;
+  const unsigned has = __ballot_sync(FULL, run_n != 0);
+  if (has) {
+    const int src = __ffs(has) - 1;
+    const int lab0 = __shfl_sync(FULL, run, src);
+    if (__all_sync(FULL, run_n == 0 || run == lab0)) {
+      const unsigned total = __reduce_add_sync(FULL, run_n);
+      if ((int)lane == src) run_add<TEST>(keys, vals, cells, lab0, total, run_count);
+    } else if (run_n) {
+      run_add<TEST>(keys, vals, cells, run, run_n, run_count);
+    }
+  }
+  __syncthreads();
+  // The block's reads of the counts come before its adds to the readers.
+  if (TEST) __threadfence();
+  for (int k = threadIdx.x; k < TABLE; k += KEEP_THREADS) {
+    const int key = keys[k];
+    if (key == EMPTY) continue;
+    if (TEST && vals[k] == lo[2 * (size_t)key]) {
+      cells[key] = 0ull;  // all its readers are in this block
+    } else {
+      cell_add<TEST>(cells, key, vals[k]);
+    }
+  }
+}
+
+template <int V>
+int keep_launches(const int* labels, const uint8_t* valid, unsigned long long* cells,
+                  uint8_t* keep, int H, int W, long long vs, int max_size, cudaStream_t s) {
+  const long long n = (long long)H * W;
+  constexpr int chunk = KEEP_THREADS * KEEP_PPT;
+  const unsigned blocks = (unsigned)((n + chunk - 1) / chunk);
+  keep_pass_kernel<V, false><<<blocks, KEEP_THREADS, 0, s>>>(labels, valid, cells, keep, H, W,
+                                                             vs, max_size);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  keep_pass_kernel<V, true><<<blocks, KEEP_THREADS, 0, s>>>(labels, valid, cells, keep, H, W,
+                                                            vs, max_size);
+  return (int)cudaGetLastError();
 }
 
 unsigned blocks_for(long long n) { return (unsigned)((n + THREADS - 1) / THREADS); }
@@ -291,21 +465,20 @@ int srcv_speckle_labels(const void* disp, const void* valid, void* labels, int H
 }
 
 // labels: (H, W) i32 fixpoint labels, contiguous; valid: (H, W) u8, rows vs
-// apart; counts: (H*W,) i32 scratch; keep: (H, W) u8 out, contiguous.
-int srcv_speckle_keep(const void* labels, const void* valid, void* counts, void* keep,
+// apart; cells: (H*W,) u64 count cells, all zero (and zero again on return);
+// keep: (H, W) u8 out, contiguous.
+int srcv_speckle_keep(const void* labels, const void* valid, void* cells, void* keep,
                       int H, int W, long long vs, int max_size, void* stream) {
+  if ((long long)H * W == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  const long long n = (long long)H * W;
-  cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int32_t) * (size_t)n, s);
-  if (err != cudaSuccess) return (int)err;
-  keep_count_kernel<<<blocks_for(n), THREADS, 0, s>>>(
-      (const int*)labels, (const uint8_t*)valid, (int*)counts, H, W, vs);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  keep_test_kernel<<<blocks_for(n), THREADS, 0, s>>>(
-      (const int*)labels, (const uint8_t*)valid, (const int*)counts, (uint8_t*)keep, H, W,
-      vs, max_size);
-  return (int)cudaGetLastError();
+  const bool vec = W % 4 == 0 && vs % 4 == 0 && (uintptr_t)labels % 16 == 0 &&
+                   (uintptr_t)valid % 4 == 0 && (uintptr_t)keep % 4 == 0;
+  const int* l = (const int*)labels;
+  const uint8_t* v = (const uint8_t*)valid;
+  unsigned long long* c = (unsigned long long*)cells;
+  uint8_t* k = (uint8_t*)keep;
+  return vec ? keep_launches<4>(l, v, c, k, H, W, vs, max_size, s)
+             : keep_launches<1>(l, v, c, k, H, W, vs, max_size, s);
 }
 
 }  // extern "C"

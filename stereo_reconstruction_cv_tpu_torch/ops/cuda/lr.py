@@ -5,7 +5,9 @@ Plain versions of ``stereo_reconstruction_cv_tpu/ops/disparity.py``
 which replaces the TPU kernel ``ops/pallas/lr_pallas.py:lr_check_maps_pallas``.
 
 ``lr_check_maps`` dispatches on the device of its inputs: CPU tensors take the
-plain version, CUDA tensors launch the kernel (or raises).
+plain version, CUDA tensors launch the kernel (or raises). The kernel is one
+launch with no scratch in device memory: each block holds its rows'
+right-view winners in shared memory (``lr_rows_per_block``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,10 @@ import torch
 from stereo_reconstruction_cv_tpu_torch import _build
 
 _BIG = 1 << 29
+# Shared memory of one block on Hopper: the most it may ask for (227 KB, after
+# cudaFuncSetAttribute) and what it gets without asking.
+SMEM_BLOCK_MAX = 232448
+SMEM_DEFAULT = 48 * 1024
 
 # Kernel launches by this module's wrapper (read and reset by chip_smoke.py).
 launches = {"lr_check": 0}
@@ -71,19 +77,44 @@ def lr_check(S: torch.Tensor, disp: torch.Tensor, min_disp: int, max_diff: int) 
     return lr_check_maps_plain(best, minS, disp, S.shape[-1], min_disp, max_diff)
 
 
+def lr_rows_per_block(H: int, Wc: int, num_disp: int, min_disp: int) -> int:
+    """Image rows one block of the kernel checks: enough for about 1024
+    pixels where rows are short, within 48 KB of shared keys, one row where a
+    row alone needs more. Raises ValueError where one row's keys
+    (min_disp + num_disp + Wc int32) exceed what a block can hold."""
+    Wf = min_disp + num_disp + Wc
+    if 4 * Wf > SMEM_BLOCK_MAX:
+        raise ValueError(
+            f"lr_check: a row of min_disp + num_disp + Wc = {Wf} keys needs {4 * Wf} bytes "
+            f"of shared memory; a block holds at most {SMEM_BLOCK_MAX} "
+            f"({SMEM_BLOCK_MAX // 4} keys)")
+    return max(1, min(H, -(-1024 // max(Wc, 1)), SMEM_DEFAULT // (4 * Wf)))
+
+
 def lr_check_maps(best: torch.Tensor, minS: torch.Tensor, disp: torch.Tensor,
-                  num_disp: int, min_disp: int, max_diff: int) -> torch.Tensor:
-    """Keep mask (H, Wc) bool; kernel on CUDA tensors, plain on the CPU."""
+                  num_disp: int, min_disp: int, max_diff: int,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """Keep mask (H, Wc) bool; kernel on CUDA tensors, plain on the CPU.
+
+    With `out`, a bool (H, Wc) tensor on the inputs' device (contiguous on
+    CUDA), the mask is ANDed into it in place and `out` is returned: the
+    SGBM chain's ``valid &= keep`` without a separate op."""
     H, Wc = best.shape
     if minS.shape != (H, Wc) or disp.shape != (H, Wc):
         raise ValueError("best, minS and disp must share one (H, Wc) shape")
     if min_disp < 0 or max_diff < 0:
         raise ValueError(f"min_disp={min_disp} and max_diff={max_diff} must be >= 0")
     dev = best.device
+    if out is not None and (out.shape != (H, Wc) or out.dtype != torch.bool or out.device != dev):
+        raise ValueError(f"out must be a bool (H, Wc) = {(H, Wc)} tensor on {dev}, got "
+                         f"{out.dtype} {tuple(out.shape)} on {out.device}")
     if dev.type == "cpu":
-        return lr_check_maps_plain(best, minS, disp, num_disp, min_disp, max_diff)
+        keep = lr_check_maps_plain(best, minS, disp, num_disp, min_disp, max_diff)
+        return keep if out is None else out.logical_and_(keep)
     if dev.type != "cuda" or minS.device != dev or disp.device != dev:
         raise ValueError("lr_check_maps: inputs must all lie on one CUDA device")
+    if out is not None and not out.is_contiguous():
+        raise ValueError("lr_check_maps: out must be contiguous on CUDA")
     dq = 1
     while dq < num_disp + 1:
         dq *= 2
@@ -91,16 +122,16 @@ def lr_check_maps(best: torch.Tensor, minS: torch.Tensor, disp: torch.Tensor,
     # minS <= 8 * (32767 + 65535 / 4) bounds every config check_sgm_bounds allows.
     if (8 * (0x7FFF + 0xFFFF // 4) + 1) * dq >= 0x7F7F7F7F:
         raise ValueError(f"num_disp={num_disp}: packed LR keys would overflow")
+    rows = lr_rows_per_block(H, Wc, num_disp, min_disp)
     best = best.to(torch.int32).contiguous()
     minS = minS.to(torch.int32).contiguous()
     disp = disp.to(torch.float32).contiguous()
-    pk = torch.empty((H, min_disp + num_disp + Wc), dtype=torch.int32, device=dev)
-    keep = torch.empty((H, Wc), dtype=torch.bool, device=dev)
+    keep = torch.empty((H, Wc), dtype=torch.bool, device=dev) if out is None else out
     lib = _build.kernels_library()
     with torch.cuda.device(dev):
         err = lib.srcv_lr_check(
-            best.data_ptr(), minS.data_ptr(), disp.data_ptr(), pk.data_ptr(),
-            keep.data_ptr(), H, Wc, num_disp, min_disp, max_diff,
+            best.data_ptr(), minS.data_ptr(), disp.data_ptr(), keep.data_ptr(), H, Wc,
+            num_disp, min_disp, max_diff, rows, int(out is not None),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "lr_check")

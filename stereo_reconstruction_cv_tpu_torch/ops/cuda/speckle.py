@@ -10,7 +10,9 @@ Plain versions of ``stereo_reconstruction_cv_tpu/ops/disparity.py``
   ``flood_round_pallas``) iterated to their fixpoint. The kernel computes the
   fixpoint directly, by union-find, in three launches and no host sync;
 - ``speckle_keep``: ``disparity.py:_component_keep_sort`` (the sorted size
-  test the TPU needed for want of fast scatters), as an atomic histogram.
+  test the TPU needed for want of fast scatters), as a histogram of the
+  component roots in two aggregated passes over count cells that the
+  wrapper keeps per (device, H*W) and that the kernels leave zero.
 
 The label map is what the flood converges to: every valid pixel gets the
 smallest linear index of its 4-connected component (neighbours joined where
@@ -39,6 +41,8 @@ from stereo_reconstruction_cv_tpu_torch import _build
 launches = {"speckle_labels": 0, "speckle_keep": 0}
 
 MAX_ROUNDS = 64
+# speckle_keep_cuda's count cells by (device, pixels): see count_cells.
+_cells: dict = {}
 TILE = 32  # the label kernel's square tile (csrc/speckle.cu TW, TH)
 
 
@@ -197,6 +201,23 @@ def speckle_labels_cuda(disp: torch.Tensor, valid: torch.Tensor, max_diff: float
     return labels
 
 
+def count_cells(dev: torch.device, n: int) -> torch.Tensor:
+    """The keep kernels' count cells for maps of n pixels on `dev`: (n,) int64,
+    zero between calls (the kernels return them to zero). Made once per
+    (device, n) and kept, so a CUDA graph that captured a call stays valid;
+    calls that share them must run in order on one stream."""
+    key = (dev, n)
+    cells = _cells.get(key)
+    if cells is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"speckle_keep_cuda: no count cells yet for {n} pixels on {dev}; call it "
+                "once outside CUDA graph capture first")
+        cells = torch.zeros(n, dtype=torch.int64, device=dev)
+        _cells[key] = cells
+    return cells
+
+
 def speckle_keep_cuda(labels: torch.Tensor, valid: torch.Tensor, max_size: int) -> torch.Tensor:
     """Kernel: valid & (component size > max_size) from a fixpoint label map."""
     if labels.dtype != torch.int32:
@@ -206,14 +227,16 @@ def speckle_keep_cuda(labels: torch.Tensor, valid: torch.Tensor, max_size: int) 
     H, W = labels.shape
     labels = labels.contiguous()
     valid, vs = _rows(valid)
-    counts = torch.empty(H * W, dtype=torch.int32, device=dev)
+    cells = count_cells(dev, H * W)
     keep = torch.empty((H, W), dtype=torch.bool, device=dev)
     lib = _build.kernels_library()
     with torch.cuda.device(dev):
         err = lib.srcv_speckle_keep(
-            labels.data_ptr(), valid.data_ptr(), counts.data_ptr(), keep.data_ptr(),
+            labels.data_ptr(), valid.data_ptr(), cells.data_ptr(), keep.data_ptr(),
             H, W, vs, int(max_size), torch.cuda.current_stream().cuda_stream,
         )
+    if err != 0:
+        del _cells[(dev, H * W)]  # a pass may not have run: the cells are no longer zero
     _build.check(lib, err, "speckle_keep")
     _build.count(launches, "speckle_keep")
     return keep

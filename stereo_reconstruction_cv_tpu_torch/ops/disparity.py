@@ -88,8 +88,8 @@ def sgbm_disparity(left: torch.Tensor, right: torch.Tensor, cfg: SGBMConfig):
     )
     del C
     if cfg.disp12_max_diff >= 0:
-        valid &= lr_check_maps(best, minS, disp, cfg.num_disparities,
-                               cfg.min_disparity, cfg.disp12_max_diff)
+        lr_check_maps(best, minS, disp, cfg.num_disparities, cfg.min_disparity,
+                      cfg.disp12_max_diff, out=valid)  # valid &= keep, in place
     # Pad the invalid left margin back to full width.
     disp = torch.nn.functional.pad(disp, (x0, 0), value=float(cfg.min_disparity - 1))
     valid = torch.nn.functional.pad(valid, (x0, 0), value=False)

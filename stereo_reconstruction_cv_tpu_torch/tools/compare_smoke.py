@@ -10,9 +10,10 @@ between a tree's two runs. Each run's full log goes to DIR (default
 ``build/compare_smoke``); the numbers read from the logs are written to
 DIR/summary.json and printed, with the card's name and power limit: kernel
 times at 720p x 128 and 4K x 256, each sweep direction, the fused sweep
-with each candidate direction and the speckle kernels on each map (their
-label launches apart) where the log has them, and config 2 and config 3
-s/pair. Exit code 0 when all four runs exit 0.
+with each candidate direction, the LR check at 720p and the speckle kernels
+on each map (their label launches apart) where the log has them, and config
+2 and config 3 s/pair, device busy time and idle share (config 3's peak
+memory too). Exit code 0 when all four runs exit 0.
 """
 
 from __future__ import annotations
@@ -36,8 +37,17 @@ _PATTERNS = (
     ("sgm_sweep_wta 720p 8-dir ms", r"\[720p 8-dir\] sgm_sweep_wta: equal .*?kernel ([\d.]+) ms"),
     ("sgm_sweep_wta 720p 5-dir ms", r"\[720p 5-dir\] sgm_sweep_wta: equal .*?kernel ([\d.]+) ms"),
     ("sgm_aggregate 720p 8-dir ms", r"\[720p 8-dir\] sgm_aggregate \(S volume\).*?kernels ([\d.]+) ms"),
+    ("lr_check 720p 8-dir ms", r"\[720p 8-dir\] lr_check: equal; kernel ([\d.]+) ms"),
+    ("lr_check 720p 5-dir ms", r"\[720p 5-dir\] lr_check: equal; kernel ([\d.]+) ms"),
     ("config 2 s/pair", r"sgbm_disparity 720p x128 8-dir \(device speckle\).*?warm median ([\d.e-]+) s"),
+    ("config 2 device busy ms",
+     r"profile 720p sgbm_disparity x128 8-dir \(device speckle\): wall [\d.]+ ms, device busy ([\d.]+) ms"),
+    ("config 2 idle share",
+     r"profile 720p sgbm_disparity x128 8-dir \(device speckle\): .*?idle share ([-\d.]+)"),
     ("config 3 s/pair", r"4K device chain 3840x2160 x256 5-dir.*?warm median ([\d.e-]+) s"),
+    ("config 3 peak GiB", r"4K device chain 3840x2160 x256 5-dir.*?peak ([\d.]+) GiB"),
+    ("config 3 device busy ms", r"profile 4K device chain [^:]*: wall [\d.]+ ms, device busy ([\d.]+) ms"),
+    ("config 3 idle share", r"profile 4K device chain [^:]*: .*?idle share ([-\d.]+)"),
     ("4K pair -> PLY s/pair", r"4K e2e 3840x2160 x256 5-dir.*?warm median ([\d.e-]+) s"),
     ("build s", r"built CUDA kernels in ([\d.]+) s"),
 )

@@ -15,7 +15,16 @@ and prints one JSON object with, per config:
 - the speckle labels of the config's own map (LR-checked, the left margin
   sliced off, as the main path hands it over): each of the three launches'
   device time (``torch.profiler``), their total by CUDA-graph replay, and
-  whether the labels equal the plain flood's fixpoint.
+  whether the labels equal the plain flood's fixpoint;
+- the keep-mask kernels by CUDA-graph replay, each against its plain
+  version: ``lr_check`` on the fused sweep's maps, and ``speckle_keep`` on
+  the config's own map, a speckled map of the same shape (random
+  disparities x60 joined within 5, 40% invalid: components of a few pixels)
+  and a map of single-pixel components; each wrapper's time over 20
+  back-to-back eager calls as well (its host work included);
+- ``sgbm_disparity`` as the config runs it (LR check, device speckle): the
+  median and the least of 30 warm runs, synchronised wall clock, and the
+  median time the host takes to return from the call (its issue time).
 
 Needs a CUDA device (exit 2 without one).
 """
@@ -23,16 +32,25 @@ Needs a CUDA device (exit 2 without one).
 from __future__ import annotations
 
 import json
+import statistics
 import sys
+import time
 
 import numpy as np
 import torch
 
 from stereo_reconstruction_cv_tpu_torch.ops import disparity as DP
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import cost as CK
+from stereo_reconstruction_cv_tpu_torch.ops.cuda import lr as LK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import sgm as SK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import speckle as SPK
-from stereo_reconstruction_cv_tpu_torch.utils.timing import card, cuda_ms, graph_ms, kernel_ms
+from stereo_reconstruction_cv_tpu_torch.utils.timing import (
+    card,
+    cuda_ms,
+    graph_ms,
+    kernel_ms,
+    launch_ms,
+)
 
 CONFIGS = (("config 2", 720, 1280, 128, 8), ("config 3", 2160, 3840, 256, 5))
 SHIFT = 40
@@ -64,6 +82,13 @@ def probe(H: int, W: int, D: int, nd: int, dev) -> dict:
         }
         del vols
     del C
+    disp, _, best, minS = first
+    md, T = cfg.disp12_max_diff, cfg.speckle_window_size
+    out["lr_check"] = {
+        "equal": torch.equal(LK.lr_check_maps(best, minS, disp, D, 0, md),
+                             LK.lr_check_maps_plain(best, minS, disp, D, 0, md)),
+        "ms": graph_ms(lambda: LK.lr_check_maps(best, minS, disp, D, 0, md), 10),
+    }
     d, v = DP.sgbm_disparity(left, right, cfg.with_(speckle_window_size=0))
     d, v = d[:, D:], v[:, D:]
     diff = float(cfg.speckle_range)
@@ -73,6 +98,35 @@ def probe(H: int, W: int, D: int, nd: int, dev) -> dict:
         "ms": graph_ms(lambda: SPK.speckle_labels_cuda(d, v, diff), 10),
         **kernel_ms(lambda: SPK.speckle_labels_cuda(d, v, diff)),
     }
+    rng = np.random.default_rng(1)
+    h, w = v.shape
+    sv = torch.from_numpy(rng.random((h, w)) >= 0.4).to(dev)
+    sd = torch.from_numpy((rng.random((h, w)) * 60).astype(np.float32)).to(dev)
+    speckled = (SPK.speckle_labels_cuda(sd, sv, 5.0), sv)
+    singletons = (torch.arange(h * w, dtype=torch.int32, device=dev).view(h, w),
+                  torch.ones((h, w), dtype=torch.bool, device=dev))
+    out["speckle_keep"] = {}
+    for name, (lab, val) in (("frame", (ref, v)), ("speckled", speckled),
+                             ("singletons", singletons)):
+        out["speckle_keep"][name] = {
+            "equal": torch.equal(SPK.speckle_keep_cuda(lab, val, T),
+                                 SPK.speckle_keep_plain(lab, val, T)),
+            "ms": graph_ms(lambda: SPK.speckle_keep_cuda(lab, val, T), 10),
+        }
+    out["lr_check"]["eager_ms"] = launch_ms(
+        lambda: LK.lr_check_maps(best, minS, disp, D, 0, md), 20)
+    out["speckle_keep"]["frame"]["eager_ms"] = launch_ms(
+        lambda: SPK.speckle_keep_cuda(ref, v, T), 20)
+    walls, issue = [], []
+    for _ in range(31):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        DP.sgbm_disparity(left, right, cfg)
+        issue.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    out["sgbm_disparity"] = {"s_per_pair": statistics.median(walls[1:]), "min": min(walls[1:]),
+                             "issue_s": statistics.median(issue[1:])}
     torch.cuda.empty_cache()
     return out
 

@@ -80,3 +80,23 @@ def test_parse_reads_fused_candidates_and_speckle_lines():
         "speckle_labels 720p frame labels_local_kernel ms": 0.02,
         "speckle_labels 720p frame labels_flatten_kernel ms": 0.008,
     }
+
+
+def test_parse_reads_lr_busy_idle_and_peak_lines():
+    log = "\n".join([
+        "[720p 8-dir] lr_check: equal; kernel 0.010 ms, plain 10.5 ms; keep share 0.97",
+        "[720p 5-dir] lr_check: equal; kernel 0.011 ms, plain 10.4 ms; keep share 0.97",
+        "profile 720p sgbm_disparity x128 8-dir (device speckle): wall 4.787 ms, device busy "
+        "2.606 ms, idle share 0.4556",
+        "profile 4K device chain x256 5-dir (config 3, device speckle): wall 40.158 ms, device "
+        "busy 34.179 ms, idle share 0.1489",
+        "4K device chain 3840x2160 x256 5-dir: s/pair first (cold) 0.036, warm [0.0357] "
+        "(warm median 0.0357 s, 232.4 MPix/s); masked point sum 1.0; peak 7.850 GiB; kept "
+        "non-margin share 0.99",
+    ])
+    assert CS.parse(log) == {
+        "lr_check 720p 8-dir ms": 0.010, "lr_check 720p 5-dir ms": 0.011,
+        "config 2 device busy ms": 2.606, "config 2 idle share": 0.4556,
+        "config 3 device busy ms": 34.179, "config 3 idle share": 0.1489,
+        "config 3 s/pair": 0.0357, "config 3 peak GiB": 7.850,
+    }

@@ -8,8 +8,11 @@ with a card (and no JAX) run them with
 Shapes are small and ragged on purpose (D not a multiple of 32, one-lane D,
 min_disp > 0, even and odd blocks, crops and row counts that are no multiple
 of the cost kernel's tile, single pixels, rows and columns, long diagonals,
-unaligned volumes); chip_smoke.py checks the full-size shapes of the main
-path.
+unaligned volumes), with stress maps for the keep-mask kernels (every
+scatter on one address, rows past 48 KB of shared memory, one component
+over a 4K frame, a component per pixel) and the torch ops of rectification
+and reprojection held to the same calls on the CPU; chip_smoke.py checks
+the full-size shapes of the main path.
 """
 
 import numpy as np
@@ -17,6 +20,8 @@ import pytest
 import torch
 
 from stereo_reconstruction_cv_tpu_torch import native
+from stereo_reconstruction_cv_tpu_torch.ops import geometry as G
+from stereo_reconstruction_cv_tpu_torch.ops import rectify as RC
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import cost as CK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import lr as LK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import op_chain as OC
@@ -154,6 +159,182 @@ def test_lr_kernel_ties_and_margins(dev):
     for max_diff in (0, 1, 3):
         got = LK.lr_check_maps(best, minS, disp, D, md, max_diff)
         assert torch.equal(got, LK.lr_check_maps_plain(best, minS, disp, D, md, max_diff))
+
+
+def _lr_case(kind, seed=0):
+    """(best, minS, disp, D, min_disp) int32/int32/f32 numpy maps for the LR
+    kernel's stress cases."""
+    rng = np.random.default_rng(seed)
+    H, Wc, D, md = {"one column": (20, 64, 64, 0), "constant best": (9, 300, 48, 0),
+                    "min_disp": (17, 150, 40, 7), "ragged": (13, 301, 33, 2),
+                    "rows per block": (71, 30, 16, 3), "past 48 KB": (3, 12400, 16, 0),
+                    "single row": (1, 7, 5, 1)}[kind]
+    best = rng.integers(0, D, (H, Wc)).astype(np.int32)
+    if kind == "one column":  # Wc == D: every left pixel aims at right column D
+        best = np.broadcast_to(np.arange(Wc, dtype=np.int32), (H, Wc)).copy()
+    elif kind == "constant best":
+        best[:] = 17
+    best[rng.random((H, Wc)) < 0.05] = -1  # no winner: nothing scattered
+    minS = rng.integers(0, 3, (H, Wc)).astype(np.int32)  # many tied winning costs
+    frac = rng.uniform(-0.5, 0.5, (H, Wc)).astype(np.float32)
+    frac[rng.random((H, Wc)) < 0.2] = 0.0
+    disp = (np.maximum(best, 0) + frac + md).astype(np.float32)
+    return best, minS, disp, D, md
+
+
+@pytest.mark.parametrize("kind", ["one column", "constant best", "min_disp", "ragged",
+                                  "rows per block", "past 48 KB", "single row"])
+def test_lr_kernel_stress_equals_plain(dev, kind):
+    """One launch with the right-view rows in shared memory: all scatters on
+    one address, min_disp > 0, Wc not a multiple of 4 or of the block,
+    several rows a block, a row past 48 KB; written and ANDed into `out`,
+    aligned (vector path) and one byte off (scalar path)."""
+    best, minS, disp, D, md = (torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a
+                               for a in _lr_case(kind))
+    H, Wc = best.shape
+    rows = LK.lr_rows_per_block(H, Wc, D, md)
+    if kind == "rows per block":
+        assert rows > 1 and H % rows != 0
+    if kind == "past 48 KB":
+        assert 4 * (md + D + Wc) > LK.SMEM_DEFAULT
+    rng = np.random.default_rng(1)
+    for max_diff in (0, 1, 3):
+        ref = LK.lr_check_maps_plain(best, minS, disp, D, md, max_diff)
+        got = LK.lr_check_maps(best, minS, disp, D, md, max_diff)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), max_diff
+        start = torch.from_numpy(rng.random((H, Wc)) < 0.7).to(dev)
+        buf = torch.empty(H * Wc + 1, dtype=torch.bool, device=dev)
+        for out in (start.clone(), buf[1:].view(H, Wc)):
+            out.copy_(start)
+            assert LK.lr_check_maps(best, minS, disp, D, md, max_diff, out=out) is out
+            torch.cuda.synchronize()
+            assert torch.equal(out, start & ref), max_diff
+
+
+def test_lr_kernel_refuses_a_row_past_a_block(dev):
+    Wc = LK.SMEM_BLOCK_MAX // 4 + 1
+    best = torch.zeros((2, Wc), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        LK.lr_check_maps(best, best, best.float(), 16, 0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        LK.lr_check_maps(best, best, best.float(), 16, 0, 1,
+                         out=torch.ones((Wc, 2), dtype=torch.bool, device=dev).t())
+
+
+def _keep_case(kind, H, W, seed=0):
+    """(labels int32, valid bool) numpy fixpoint label maps for speckle_keep."""
+    if kind == "one component":
+        return np.zeros((H, W), np.int32), np.ones((H, W), bool)
+    if kind == "singletons":
+        return np.arange(H * W, dtype=np.int32).reshape(H, W), np.ones((H, W), bool)
+    if kind == "all invalid":
+        return np.full((H, W), H * W, np.int32), np.zeros((H, W), bool)
+    disp, valid = _speckle_case("random", H, W, seed)
+    labels, converged = SPK.speckle_labels_plain(torch.from_numpy(disp), torch.from_numpy(valid),
+                                                 5.0, max_rounds=4096)
+    assert converged
+    return labels.numpy(), valid
+
+
+@pytest.mark.parametrize("kind,H,W,T", [
+    ("one component", 2160, 3584, 100), ("one component", 37, 70, 0),
+    ("one component", 33, 65, 33 * 65), ("one component", 33, 65, 33 * 65 - 1),
+    ("singletons", 300, 512, 0), ("singletons", 129, 257, 1), ("all invalid", 40, 64, 0),
+    ("speckled", 200, 321, 3), ("speckled", 64, 128, 0), ("speckled", 64, 128, 64 * 128),
+])
+def test_speckle_keep_kernel_stress_equals_plain(dev, kind, H, W, T):
+    """One component over a 4K frame (one global atomic a block and pass),
+    a component per pixel (past every block's table), all invalid, T = 0 and
+    T >= H*W; the count cells are zero again after each call."""
+    labels_np, valid_np = _keep_case(kind, H, W)
+    labels, valid = torch.from_numpy(labels_np).to(dev), torch.from_numpy(valid_np).to(dev)
+    ref = SPK.speckle_keep_plain(labels, valid, T)
+    for _ in range(2):
+        keep = SPK.speckle_keep_cuda(labels, valid, T)
+        torch.cuda.synchronize()
+        assert torch.equal(keep, ref)
+        assert not SPK.count_cells(labels.device, H * W).any()
+
+
+@pytest.mark.parametrize("x0", [1, 2, 4, 64])
+def test_speckle_keep_reads_valid_through_its_row_stride(dev, x0):
+    """valid as a column slice of a wider map: 4-byte aligned rows (vector
+    path, W % 4 == 0) and unaligned ones (scalar path)."""
+    H, W = 45, 128
+    labels_np, valid_np = _keep_case("speckled", H, W, seed=x0)
+    wide = np.zeros((H, W + x0), bool)
+    wide[:, x0:] = valid_np
+    valid = torch.from_numpy(wide).to(dev)[:, x0:]
+    labels = torch.from_numpy(labels_np).to(dev)
+    keep = SPK.speckle_keep_cuda(labels, valid, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(keep, SPK.speckle_keep_plain(labels, valid.contiguous(), 3))
+
+
+def test_speckle_keep_in_a_cuda_graph(dev):
+    """Captured once, replayed over two label maps of one shape in turns:
+    the count cells it captured are zero again after each replay."""
+    H, W = 96, 160
+    maps = [tuple(torch.from_numpy(a).to(dev) for a in _keep_case(kind, H, W, seed=3))
+            for kind in ("speckled", "singletons")]
+    labels, valid = (t.clone() for t in maps[0])
+    SPK.speckle_keep_cuda(labels, valid, 4)  # makes the count cells outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        keep = SPK.speckle_keep_cuda(labels, valid, 4)
+    for k in (0, 1, 0, 1):
+        labels.copy_(maps[k][0])
+        valid.copy_(maps[k][1])
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(keep, SPK.speckle_keep_plain(*maps[k], 4)), k
+        assert not SPK.count_cells(labels.device, H * W).any()
+
+
+K_4K = np.array([[2253.71, 0.0, 1929.69], [0.0, 2244.72, 1057.63], [0.0, 0.0, 1.0]])
+# Relative error allowed between the card's and the CPU's points where they
+# are not bit-equal: a few f32 ulps (chip_smoke.py F32_RTOL).
+F32_RTOL = 4.0e-7
+
+
+def _rig(kind, W, H):
+    K = torch.tensor(K_4K * np.array([[W / 3840], [H / 2160], [1.0]]), dtype=torch.float64)
+    if kind == "identity":  # the reference's 4K benchmark rig
+        R, T, dist = torch.eye(3, dtype=torch.float64), torch.tensor([-0.14, 0.0, 0.0]), None
+    else:  # rotation, vertical and forward baseline components, distortion
+        R = G.rodrigues_to_matrix(torch.tensor([0.01, 0.04, -0.02], dtype=torch.float64))
+        T = torch.tensor([-0.8, 0.05, 0.1])
+        dist = torch.tensor([0.2090, -0.5576, -7.2e-6, 5.2e-4, 0.3812], dtype=torch.float64)
+    res = RC.stereo_rectify(K, dist, K, dist, (W, H), R, T.to(torch.float64), alpha=0.0)
+    return K, dist, res
+
+
+@pytest.mark.parametrize("rig", ["identity", "rotated"])
+@pytest.mark.parametrize("H,W", [(48, 64), (181, 321)])
+def test_rectify_and_reproject_on_the_card_match_the_cpu(dev, rig, H, W):
+    """rectify_remap within 1 LSB of the CPU's (the inverse rotation and the
+    f32 weights may round differently); reproject_image_to_3d bit-equal or
+    within F32_RTOL, with the same finite points."""
+    K, dist, res = _rig(rig, W, H)
+    rng = np.random.default_rng(H)
+    img = torch.from_numpy(rng.integers(0, 256, (H, W), dtype=np.uint8))
+    for R, P in ((res.R1, res.P1), (res.R2, res.P2)):
+        ref = RC.rectify_remap(img, K, dist, R, P)
+        got = RC.rectify_remap(img.to(dev), K, dist, R, P).cpu()
+        assert got.dtype == torch.uint8
+        assert int((got.to(torch.int16) - ref.to(torch.int16)).abs().max()) <= 1
+    disp = rng.uniform(0, 30, (H, W)).astype(np.float32)
+    disp[rng.random((H, W)) < 0.2] = 0.0
+    disp[0, :3] = -1.0  # the SGBM margin's value
+    Q = res.Q.to(torch.float32)
+    ref = G.reproject_image_to_3d(torch.from_numpy(disp), Q)
+    got = G.reproject_image_to_3d(torch.from_numpy(disp).to(dev), Q.to(dev)).cpu()
+    fin = torch.isfinite(ref)
+    assert torch.equal(torch.isfinite(got), fin)
+    rel = (got[fin] - ref[fin]).abs() / ref[fin].abs().clamp_min(1e-30)
+    assert float(rel.max()) <= F32_RTOL
 
 
 @pytest.mark.parametrize("nd", [5, 8])

@@ -315,3 +315,50 @@ def test_rows_keep_column_slices_uncopied():
     assert t.is_contiguous() and stride == 6
     t, stride = SPK._rows(full[:, 3:4])
     assert t.data_ptr() == full[:, 3:4].data_ptr() and stride == 40
+
+
+def _keep_stress(kind, H, W):
+    """The size test's stress maps (tests/test_torch_gpu.py), from disparities:
+    (disp, valid)."""
+    if kind == "one component":
+        return np.full((H, W), 7.0, np.float32), np.ones((H, W), bool)
+    if kind == "singletons":  # a checkerboard of disparities 30 apart: no edge joined
+        disp = np.where(np.add.outer(np.arange(H), np.arange(W)) % 2 == 0, 10.0, 40.0)
+        return disp.astype(np.float32), np.ones((H, W), bool)
+    if kind == "all invalid":
+        return np.full((H, W), 4.0, np.float32), np.zeros((H, W), bool)
+    return _speckled(7, H, W, p_invalid=0.3, block=2)
+
+
+@pytest.mark.parametrize("kind,T", [
+    ("one component", 0), ("one component", 37 * 21 - 1), ("one component", 37 * 21),
+    ("singletons", 0), ("singletons", 1), ("all invalid", 0), ("speckled", 0),
+    ("speckled", 37 * 21),
+])
+def test_keep_stress_maps_match_sort_and_host_filter(kind, T):
+    """The yardstick the card holds the keep kernel to: the plain bincount
+    test equals the reference's sorted test on its fixpoint and the exact host
+    filter, for T = 0, T >= H*W and the maps that stress the kernel (one
+    component, a component per pixel, no valid pixel)."""
+    H, W = 37, 21
+    disp, valid = _keep_stress(kind, H, W)
+    fix, _ = _ref_fixpoint(disp, valid)
+    labels, converged = SPK.speckle_labels_plain(_t(disp), _t(valid), MAX_DIFF)
+    assert converged
+    np.testing.assert_array_equal(labels.numpy(), fix)
+    got = SPK.speckle_keep_plain(labels, _t(valid), T).numpy()
+    np.testing.assert_array_equal(got, np.asarray(RD._component_keep_sort(jnp.asarray(fix), T)) & valid)
+    np.testing.assert_array_equal(got, ref_native.filter_speckles(disp, valid, T, MAX_DIFF))
+    if kind == "singletons":
+        assert len(np.unique(fix)) == H * W and got.all() == (T == 0)
+
+
+def test_keep_kernel_argument_checks():
+    labels = torch.zeros((6, 9), dtype=torch.int32)
+    valid = torch.ones((6, 9), dtype=torch.bool)
+    with pytest.raises(ValueError, match="int32"):
+        SPK.speckle_keep_cuda(labels.long(), valid, 3)
+    with pytest.raises(ValueError, match="shape"):
+        SPK.speckle_keep_cuda(labels, valid[:, :4], 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        SPK.speckle_keep_cuda(labels, valid, 3)
