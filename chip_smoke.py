@@ -6,12 +6,16 @@
 Phases:
   1. device    the card's name and power limit, torch / CUDA / nvcc versions
   2. build     nvcc over stereo_reconstruction_cv_tpu_torch/csrc (one process
-               per source, in parallel), g++ over native/speckle.cc, timed
+               per source, in parallel), g++ over native/speckle.cc, timed;
+               ptxas's registers and spills of each fused-sweep instance
   3. kernels   each CUDA kernel against its plain PyTorch version on the card,
                at 1280x720 x 128 (5 and 8 directions) and at a ragged
                721x1283 x 96 with min_disp 5: integer maps, masks and the f32
-               disparity must be EQUAL; sgm_aggregate (the full S volume) and
-               wta_maps(sgm_aggregate(C)) == sgm_wta(C); the speckle labels
+               disparity must be EQUAL; sgm_sweep_sum (the fused sweep that
+               stores S) and sgm_aggregate (the full S volume: path sweeps +
+               sgm_sweep_sum, its launches, time, bounds and peak memory for
+               5 and 8 paths) and wta_maps(sgm_aggregate(C)) == sgm_wta(C);
+               the speckle labels
                and keep masks on speckled maps of both sizes; CUDA-event times,
                each path-sweep direction alone at 720p (its time against its
                path length tells latency from transfers), and config 2's
@@ -34,8 +38,11 @@ Phases:
                sgm_sweep_wta(C, vols) == wta_volume(C, vols with the fused
                direction accumulated onto the last volume) at 720p x 128 for
                5 and 8 paths; op_chain EQUAL to its plain version in all nine
-               cases; the op-chain kernels' min instructions counted in the
-               SASS (the identity chain must not be folded away); times
+               cases at (1024, 512) and (16384, 512), on the reference's
+               input and at the wrap edge; the op-chain kernels' min
+               instructions counted in the SASS (the identity chain must not
+               be folded away, and 16-bit values go two to an instruction);
+               times
                (kernels shorter than their wrapper's host work by CUDA-graph
                replay, as the LR and speckle kernels in phase 3)
   5. 4K        3840x2160 x 256, 5 paths, the rig of the reference's 4K
@@ -104,6 +111,8 @@ KERNELS = {
                        "stereo_reconstruction_cv_tpu/ops/pallas/sgm_pallas.py:563, :263, :671, :617"),
     "sgm_sweep_wta": ("stereo_reconstruction_cv_tpu_torch/csrc/sgm.cu",
                       "stereo_reconstruction_cv_tpu/ops/pallas/sgm_pallas.py:505"),
+    "sgm_sweep_sum": ("stereo_reconstruction_cv_tpu_torch/csrc/sgm.cu",
+                      "stereo_reconstruction_cv_tpu/ops/pallas/sgm_pallas.py:840"),
     "lr_check": ("stereo_reconstruction_cv_tpu_torch/csrc/lr_check.cu",
                  "stereo_reconstruction_cv_tpu/ops/pallas/lr_pallas.py:130"),
     "speckle_labels": ("stereo_reconstruction_cv_tpu_torch/csrc/speckle.cu",
@@ -141,6 +150,8 @@ OPS_PER = {
     # key (multiply, add, min) and the uniqueness test (multiply, compare,
     # or)
     "sgm_sweep_wta": 16,
+    # per cell: the DP step (7) and S = nd*C + volumes + delta (3)
+    "sgm_sweep_sum": 10,
     # per pixel: the winner scatter (key, atomic min) and two floor/ceil checks
     "lr_check": 20,
     # per pixel: two edges (|difference|, compare, both valid) and a union
@@ -205,23 +216,32 @@ def bound(nbytes: float, ops: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def sass_min_counts(lib_path: str):
-    """{op_chain kernel name: number of min instructions in its SASS}."""
+# The op-chain kernels' element types as their mangled names give them, with
+# the bytes of one element.
+OP_CHAIN_TYPES = {"f": ("float32", 4), "i": ("int32", 4), "s": ("int16", 2), "t": ("uint16", 2),
+                  "13__nv_bfloat16": ("bfloat16", 2)}
+
+
+def sass_op_chain(lib_path: str):
+    """{(dtype, W / 32, ops bits): {SASS opcode: count}} of every op-chain
+    kernel, opcodes with their modifiers as cuobjdump names them."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         raise AssertionError("cuobjdump not found: the CUDA toolkit that built the "
                              "kernels ships it, and the op-chain fold check needs it")
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
                           timeout=300, check=True).stdout
-    counts, name = {}, None
+    counts, key = {}, None
     for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            name = m.group(1) if "op_chain_kernel" in m.group(1) else None
-            if name:
-                counts[name] = 0
-        elif name and "MNMX" in line:
-            counts[name] += 1
+        m = re.search(r"Function : \S*op_chain_kernelI(f|i|s|t|13__nv_bfloat16)Li(\d+)ELi(\d+)E", line)
+        if m or "Function : " in line:
+            key = (OP_CHAIN_TYPES[m.group(1)][0], int(m.group(2)), int(m.group(3))) if m else None
+            if key:
+                counts[key] = {}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Za-z0-9_.]*)", line)
+        if key and m:
+            counts[key][m.group(1)] = counts[key].get(m.group(1), 0) + 1
     return counts
 
 
@@ -367,34 +387,27 @@ def main() -> int:
         log(f"built CUDA kernels in {t1 - t0:.1f} s, host speckle in {t2 - t1:.1f} s")
         # ptxas's report: line by line for the main paths' kernels, one
         # summary for each family of template instances (the tools' kernels,
-        # and the fused sweep + WTA's K x vector x volume instances).
-        families = {}
-        for logf in sorted(_build.BUILD_DIR.glob("libsrcv_kernels-*.log")):
-            entry = None
-            for line in logf.read_text().splitlines():
-                if line.startswith("$ "):  # the next compiler command
-                    entry = None
-                m = re.search(r"Compiling entry function '(\S+)'", line)
-                if m:
-                    entry = m.group(1)
-                    continue
-                family = next((f for f in ("op_chain_kernel", "sweep_wta_kernel", "wta_kernel")
-                               if entry and f in entry), None)
-                if family is None:
-                    if entry and ("Used" in line or "spill" in line):
-                        log(f"  ptxas {entry[:60]}: {line.strip()}")
-                    continue
-                fam = families.setdefault(family, {"instances": 0, "max_registers": 0,
-                                                   "spilling": 0})
-                m = re.search(r"Used (\d+) registers", line)
-                if m:
-                    fam["instances"] += 1
-                    fam["max_registers"] = max(fam["max_registers"], int(m.group(1)))
-                m = re.search(r"(\d+) bytes spill stores", line)
-                if m and int(m.group(1)) > 0:
-                    fam["spilling"] += 1
+        # and the fused sweeps' K x vector x volume instances), and each
+        # fused-sweep instance's registers and spills on one line (the
+        # compare tool holds them to the other checkout's).
+        with open(os.path.splitext(_build.kernels_library()._name)[0] + ".log") as f:
+            report = _build.ptxas_report(f.read())
+        families, instances = {}, {}
+        for entry, r in report.items():
+            family = next((f for f in ("op_chain_kernel", "sweep_wta_kernel", "sweep_sum_kernel",
+                                       "wta_kernel") if f in entry), None)
+            if family is None:
+                log(f"  ptxas {entry[:60]}: {json.dumps(r)}")
+                continue
+            fam = families.setdefault(family, {"instances": 0, "max_registers": 0, "spilling": 0})
+            fam["instances"] += 1
+            fam["max_registers"] = max(fam["max_registers"], r["registers"])
+            fam["spilling"] += r["spill_stores"] > 0
+            if family in ("sweep_wta_kernel", "sweep_sum_kernel"):
+                instances[_build.kernel_instance(entry)] = r
         for family, fam in families.items():
             log(f"  ptxas {family}: {json.dumps(fam)}")
+        log("ptxas fused-sweep instances: " + json.dumps(instances, sort_keys=True))
 
     if failures:
         return 1
@@ -545,25 +558,63 @@ def main() -> int:
                                 OPS_PER["sgm_sweep_wta"] * cells))
                     results["lr_check"].update(ms=t_lk, plain_ms=t_lp,
                                                **bound(13 * px, OPS_PER["lr_check"] * px))
+                if label == "720p":
+                    # The S-volume route's last kernel: the fused direction's
+                    # sweep storing S, on the same volumes.
+                    S = SK.sweep_sum_cuda(C, vols, nd, p1, p2)
+                    note("sgm_sweep_sum", max_err(torch, S, SK.sweep_sum_plain(C, partial, nd, p1, p2)))
+                    del S
+                    t_qk = cuda_ms(lambda: SK.sweep_sum_cuda(C, vols, nd, p1, p2), 5)
+                    t_qp = cuda_ms(lambda: SK.sweep_sum_plain(C, partial, nd, p1, p2), 3)
+                    # Reads C and the volumes, writes the int32 S: 10 B/cell
+                    # with two volumes.
+                    b_q = bound(C.numel() * (2 + 2 * len(vols) + 4),
+                                OPS_PER["sgm_sweep_sum"] * C.numel())
+                    log(f"[{label} {nd}-dir] sgm_sweep_sum: equal; kernel {t_qk:.3f} ms, "
+                        f"plain {t_qp:.3f} ms; bound {b_q['bound_ms']:.4f} ms ({b_q['bound_by']}), "
+                        f"share {b_q['bound_ms'] / t_qk:.4f}")
+                    if nd == 8:
+                        results["sgm_sweep_sum"].update(ms=t_qk, plain_ms=t_qp, **b_q)
                 del vols, vols_p, partial
                 if label == "720p":
-                    # The S-volume entry point: every direction through the
-                    # path-sweep kernel; its WTA gives sgm_wta's maps.
+                    # The S-volume entry point: the path sweeps into u16
+                    # volumes, then sgm_sweep_sum, and nothing else; its WTA
+                    # gives sgm_wta's maps. Launches and peak memory of one
+                    # call (above what was allocated before it: C, maps).
                     dirs_nd = SK.directions_for(nd)
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    for k in SK.launches:
+                        SK.launches[k] = 0
                     S = SK.sgm_aggregate(C, p1, p2, dirs_nd)
-                    note("sgm_path_sweep", max_err(torch, S, SK.sgm_aggregate_plain(C, p1, p2, dirs_nd)))
+                    torch.cuda.synchronize()
+                    peak = torch.cuda.max_memory_allocated() - base
+                    route = {k: v for k, v in SK.launches.items() if v}
+                    if route != {"sgm_path_sweep": nd - 1, "sgm_sweep_sum": 1}:
+                        raise AssertionError(f"sgm_aggregate {nd} paths launched {route}")
+                    note("sgm_sweep_sum", max_err(torch, S, SK.sgm_aggregate_plain(C, p1, p2, dirs_nd)))
                     if max(max_err(torch, a, b) for a, b in zip(SK.wta_maps(S, md, ur), chain)) != 0:
                         raise AssertionError(f"wta_maps(sgm_aggregate(C)) != sgm_wta(C), {nd} paths")
                     del S
-                    t_ak = cuda_ms(lambda: SK.sgm_aggregate(C, p1, p2, dirs_nd), 3)
+                    t_ak = cuda_ms(lambda: SK.sgm_aggregate(C, p1, p2, dirs_nd), 5)
                     t_ap = cuda_ms(lambda: SK.sgm_aggregate_plain(C, p1, p2, dirs_nd), 1)
-                    # The function reads C and writes the int32 S volume, and
-                    # runs one DP step per cell and direction.
-                    b_a = bound(6 * C.numel(), OPS_PER["sgm_path_sweep"] * nd * C.numel())
+                    # The least-time bound: the function reads C and writes the
+                    # int32 S volume, one DP step per cell and direction. The
+                    # route's own bytes: its path sweeps' (as sgm_wta's) and
+                    # sgm_sweep_sum's 2 + 2 per volume + 4 B/cell.
+                    cells = C.numel()
+                    b_a = bound(6 * cells, OPS_PER["sgm_path_sweep"] * nd * cells)
+                    route_bytes = cells * sum(4 + 6 * (len(g) - 1) for g in groups)
+                    b_r = bound(route_bytes + cells * (2 + 2 * len(groups) + 4), 0)
                     log(f"[{label} {nd}-dir] sgm_aggregate (S volume): equal; "
                         f"wta_maps(S) == sgm_wta; kernels {t_ak:.3f} ms, plain {t_ap:.3f} ms; "
                         f"bound {b_a['bound_ms']:.4f} ms ({b_a['bound_by']}), "
-                        f"share {b_a['bound_ms'] / t_ak:.4f}")
+                        f"share {b_a['bound_ms'] / t_ak:.4f}; route bytes bound "
+                        f"{b_r['bound_ms']:.4f} ms, share {b_r['bound_ms'] / t_ak:.4f}; "
+                        f"peak {peak / 2**30:.4f} GiB allocated by the call (C "
+                        f"{C.nbytes / 2**30:.4f} GiB); "
+                        f"launches {json.dumps(route)}")
             del C
             torch.cuda.empty_cache()
             disp_np, valid_np = speckled_map(rng, H, W)
@@ -781,36 +832,52 @@ def main() -> int:
                 f"{SK.FUSED_DIR} accumulated onto the last volume)")
         del C, vols, last
 
-        # The op chain: all nine cases against the plain chain; then the
-        # SASS of the identity chain (add, min) must still hold its mins.
-        for dtype, ops in micro_i16.CASES:
-            x = micro_i16.make_input(dtype, device=dev)
-            ref = OC.op_chain_plain(x, ops)
-            t_p = cuda_ms(lambda: OC.op_chain_plain(x, ops), 3)
-            got = OC.op_chain(x, ops)
-            if dtype == torch.uint16:
-                got, ref = got.to(torch.int32), ref.to(torch.int32)
-            note("op_chain", max_err(torch, got, ref))
-            # Graph replay: a launch takes less device time than its
-            # wrapper's host work, which back-to-back calls would time.
-            t_k = graph_ms(lambda: OC.op_chain(x, ops), iters=20)
-            t_eager = launch_ms(lambda: OC.op_chain(x, ops), iters=20)
-            log(f"[op_chain {tuple(x.shape)} {dtype} {'+'.join(ops)}] equal; kernel "
-                f"{t_k * 1e3:.2f} us (graph replay); back-to-back eager calls "
-                f"{t_eager * 1e3:.2f} us; plain {t_p:.3f} ms")
-            if dtype == torch.float32 and "roll" in ops:
-                n = x.numel()
-                results["op_chain"].update(
-                    ms=t_k, plain_ms=t_p,
-                    **bound(2 * x.element_size() * n, (("add" in ops) + ("min" in ops)) * OC.REPS * n))
-        counts = sass_min_counts(_build.kernels_library()._name)
-        # E = 16 elements per lane, ops = add + min (bits 6): 16 mins per
-        # step (or half that where two 16-bit values share an instruction),
-        # REPS steps written out.
-        found = {k: v for k, v in counts.items() if "Li16ELi6EE" in k}
-        log(f"op_chain SASS, add+min at W = 512: min instructions {json.dumps(found)}")
-        if len(found) != len(OC.DTYPES) or min(found.values()) < OC.REPS * 8:
-            raise AssertionError("an add+min op-chain kernel lost its mins (folded)")
+        # The op chain: all nine cases at both of the tool's sizes against
+        # the plain chain, on the reference's input and on the wrap-edge one
+        # (integer adds that wrap, float adds that round); then the SASS of
+        # the add+min chains at W = 512 must still hold their mins.
+        for (H_c, W_c) in micro_i16.SIZES:
+            for dtype, ops in micro_i16.CASES:
+                for edge in (True, False):  # the reference's input last, for the times
+                    x = micro_i16.make_input(dtype, H_c, W_c, dev, edge=edge)
+                    ref = OC.op_chain_plain(x, ops)
+                    got = OC.op_chain(x, ops)
+                    if dtype == torch.uint16:
+                        got, ref = got.to(torch.int32), ref.to(torch.int32)
+                    note("op_chain", max_err(torch, got, ref))
+                t_p = cuda_ms(lambda: OC.op_chain_plain(x, ops), 3)
+                # Graph replay: a launch takes less device time than its
+                # wrapper's host work, which back-to-back calls would time.
+                t_k = graph_ms(lambda: OC.op_chain(x, ops), iters=20)
+                t_eager = launch_ms(lambda: OC.op_chain(x, ops), iters=20)
+                log(f"[op_chain {tuple(x.shape)} {dtype} {'+'.join(ops)}] equal; kernel "
+                    f"{t_k * 1e3:.2f} us (graph replay); back-to-back eager calls "
+                    f"{t_eager * 1e3:.2f} us; plain {t_p:.3f} ms; equal at the wrap edge; "
+                    f"{x.numel() * OC.REPS / (t_k * 1e6):.1f} G cell-steps/s")
+                if dtype == torch.float32 and "roll" in ops and (H_c, W_c) == micro_i16.SIZES[0]:
+                    n = x.numel()
+                    results["op_chain"].update(
+                        ms=t_k, plain_ms=t_p,
+                        **bound(2 * x.element_size() * n, (("add" in ops) + ("min" in ops)) * OC.REPS * n))
+        # E = 16 elements a lane, ops = add + min (bits 6): one min (or a
+        # fused add + min) per register and step, REPS steps written out. A
+        # 32-bit type holds 16 registers a lane, a 16-bit type 8 (two values
+        # a register): fewer min instructions than REPS x registers means a
+        # folded chain, and a 16-bit kernel with REPS x 16 or more is not packed.
+        sass = sass_op_chain(_build.kernels_library()._name)
+        found = {}
+        for (dt, e, bits), ops in sass.items():
+            if e == 16 and bits == 6:
+                mins = sum(n for op, n in ops.items() if "MNMX" in op)
+                regs = 16 if dict(OP_CHAIN_TYPES.values())[dt] == 4 else 8
+                found[dt] = {"min_instructions": mins, "registers_a_lane": regs,
+                             "opcodes": {op: n for op, n in ops.items() if n >= OC.REPS}}
+                if not OC.REPS * regs <= mins < OC.REPS * 2 * regs:
+                    raise AssertionError(f"op_chain {dt} add+min at W = 512: {mins} min "
+                                         f"instructions, expected REPS x {regs} (folded or unpacked)")
+        log(f"op_chain SASS, add+min at W = 512: {json.dumps(found, sort_keys=True)}")
+        if len(found) != len(OC.DTYPES):
+            raise AssertionError(f"op_chain SASS: add+min kernels found for {sorted(found)} only")
 
     # ---------------------------------------------------------------- 5. 4K
     frame = {}  # phase 5's rectified pair, disparity map and device-chain maps, for phase 6

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -139,17 +140,61 @@ def _declare_kernels(lib: ctypes.CDLL) -> None:
     lib.srcv_cost_volume.argtypes = [P] * 5 + [I] * 9 + [P]
     lib.srcv_sgm_path_sweep.argtypes = [P, P] + [I] * 9 + [P]
     lib.srcv_sgm_sweep_wta.argtypes = [P] * 7 + [I] * 12 + [P]
+    lib.srcv_sgm_sweep_sum.argtypes = [P] * 4 + [I] * 10 + [P]
     lib.srcv_lr_check.argtypes = [P] * 4 + [I] * 7 + [P]
     lib.srcv_speckle_labels.argtypes = [P, P, P, I, I, LL, LL, ctypes.c_float, P]
     lib.srcv_speckle_keep.argtypes = [P, P, P, P, I, I, LL, I, P]
     lib.srcv_wta.argtypes = [P] * 3 + [I] * 11 + [P] * 6
     lib.srcv_op_chain.argtypes = [P, P, I, I, I, I, P]
     for fn in (lib.srcv_cost_volume, lib.srcv_sgm_path_sweep, lib.srcv_sgm_sweep_wta,
-               lib.srcv_lr_check, lib.srcv_speckle_labels, lib.srcv_speckle_keep,
-               lib.srcv_wta, lib.srcv_op_chain):
+               lib.srcv_sgm_sweep_sum, lib.srcv_lr_check, lib.srcv_speckle_labels,
+               lib.srcv_speckle_keep, lib.srcv_wta, lib.srcv_op_chain):
         fn.restype = I
     lib.srcv_error_string.argtypes = [I]
     lib.srcv_error_string.restype = ctypes.c_char_p
+
+
+def ptxas_report(log_text: str) -> dict:
+    """{kernel entry (mangled): {"registers": n, "spill_stores": bytes,
+    "spill_loads": bytes}} from ptxas's -v messages in a build log (the
+    compiler messages _compile keeps beside each library)."""
+    out, entry = {}, None
+    for line in log_text.splitlines():
+        if line.startswith("$ "):  # the next compiler command
+            entry = None
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            out[entry] = {"registers": 0, "spill_stores": 0, "spill_loads": 0}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[entry].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+    return out
+
+
+def kernel_instance(entry: str) -> str:
+    """A template kernel's mangled name (_ZN, then length-prefixed names:
+    namespace, kernel) shortened to name<args>, its integer and bool
+    template arguments in order (sweep_wta_kernel<4,1,1>); other names as
+    they are."""
+    if not entry.startswith("_ZN"):
+        return entry
+    pos, name = 3, None
+    while pos < len(entry) and entry[pos].isdigit():
+        digits = re.match(r"\d+", entry[pos:]).group()
+        pos += len(digits)
+        name = entry[pos:pos + int(digits)]
+        pos += int(digits)
+    if name is None or not entry.startswith("I", pos):
+        return entry
+    args = re.findall(r"L[ib](\d+)E", entry[pos + 1:entry.index("EE", pos) + 1])
+    return f"{name}<{','.join(args)}>"
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -6,14 +6,17 @@
 // (U, UL, UR and their reverses), _sweep_hT (the forward horizontal path) and
 // _sweep_hT_wta (the reverse horizontal path with _wta_cell fused); and those
 // of sgm_aggregate_pallas (the full S volume), whose horizontal paths
-// _sweep_horizontal runs: ops/cuda/sgm.py:sgm_aggregate_cuda sweeps every
-// direction with srcv_sgm_path_sweep.
+// _sweep_horizontal runs: ops/cuda/sgm.py:sgm_aggregate_cuda sweeps all
+// directions but one with srcv_sgm_path_sweep and the last with
+// srcv_sgm_sweep_sum.
 //
 // srcv_sgm_path_sweep runs ONE direction r = (dx, dy) over the cropped cost
 // volume C (H, W, D) int16 and writes, or adds onto, a u16 volume of that
 // direction's (L - C) deltas. srcv_sgm_sweep_wta runs one more direction and
 // reduces S = nd*C + deltas of every direction per pixel to the four WTA maps,
-// so S never reaches device memory.
+// so S never reaches device memory. srcv_sgm_sweep_sum runs the last
+// direction the same way and stores S itself, int32 (H, W, D): the S-volume
+// entry point's one pass over C and the delta volumes.
 //
 // Numerics (the GPU SGM of Hernandez-Juarez et al.): one warp per path line,
 // the D disparities spread across the 32 lanes, K consecutive disparities per
@@ -62,6 +65,19 @@
 // stay in lane s % 32 and the warp stores 32 steps at once. The numerics
 // (dp_step, the packed key S*Dp + d, the uniqueness rule, the f32 subpixel)
 // are unchanged.
+//
+// sweep_sum_kernel shares that ring (ring_fetch, rows_get) and dp_step, and
+// replaces the WTA epilogue by a store of each step's S row: C, up to two
+// delta volumes and S move 10 B/cell at most, once each. Before it, the S
+// volume was assembled around eight path sweeps with torch ops (nd*C, then a
+// u16 widen and an add per volume), about 7 GB of elementwise traffic at
+// 720p x 128 and more than half of the route's 4.4 ms on an H100 80GB HBM3
+// at 700 W (PERF.md). Rows go out as one 16-byte store per four values
+// where K >= 4 (VEC), else smaller ones; streaming stores (__stcs) measured
+// no faster. The kernel takes 0.45-0.50 ms there (0.63-0.70 of its bound)
+// and the route 2.30 ms, with 7 path sweeps (PERF.md). The ring
+// functions keep sweep_wta_kernel's registers: a struct holding the same
+// state cost four of its instances 1-3 registers.
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -316,6 +332,48 @@ __device__ __forceinline__ void copy_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// A fused sweep's rows of one lane along its path, K values each: C, then
+// NV - 1 u16 delta volumes, at src[v] + s * step. With the ring (VEC, K >= 2)
+// they stream through a cp.async ring of ST steps in shared memory (`mine`:
+// this lane's bytes of its warp's ring, 64K bytes a row), one commit group
+// per step, empty past the path's end or on idle lanes; rows_get asks for
+// step s + ST - 1 and waits for exactly step s's group, and each lane reads
+// back only the bytes it copied itself, so no barrier is needed. Otherwise
+// rows_get loads step s's rows itself (the general path).
+template <int K, int NV, int ST>
+__device__ __forceinline__ void ring_fetch(uint8_t* mine, const uint16_t* const* src,
+                                           long long step, int s, int n, bool active) {
+  if (active && s < n) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      copy_row_async<K>(mine + ((s & (ST - 1)) * NV + v) * (64 * K), src[v] + s * step);
+    }
+  }
+  copy_commit();
+}
+
+template <int K, bool VEC, int NV, int ST>
+__device__ __forceinline__ void rows_get(Row<K> (&r)[NV], uint8_t* mine,
+                                         const uint16_t* const* src, long long step, int s,
+                                         int n, int nvalid, bool active) {
+  if constexpr (VEC && K >= 2) {
+    ring_fetch<K, NV, ST>(mine, src, step, s + ST - 1, n, active);
+    copy_wait<ST - 1>();  // this lane's copies of step s have landed
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      load_row<K, true>(reinterpret_cast<const uint16_t*>(
+                            mine + ((s & (ST - 1)) * NV + v) * (64 * K)), K, r[v]);
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+#pragma unroll
+      for (int i = 0; i < (K + 1) / 2; ++i) r[v].w[i] = 0;
+      if (active) load_row<K, VEC>(src[v] + s * step, nvalid, r[v]);
+    }
+  }
+}
+
 // Writes the buffered maps of steps sb .. sb + 31 (lane L holds step sb + L;
 // lanes past the path's last step hold nothing and store nothing).
 __device__ __forceinline__ void store_maps(float* __restrict__ disp, uint8_t* __restrict__ valid,
@@ -371,19 +429,9 @@ sweep_wta_kernel(const int16_t* __restrict__ C, const uint16_t* __restrict__ dsa
   const int nvalid = D - lane * K;  // with VEC, either <= 0 or >= K
   const bool active = nvalid > 0;
   uint8_t* mine = ring + (threadIdx.x >> 5) * (ST * NV * ROW) + lane * 2 * K;
-  // One commit group per step, empty past the path's end or on idle lanes.
-  auto fetch = [&](int s) {
-    if (active && s < n) {
-#pragma unroll
-      for (int v = 0; v < NV; ++v) {
-        copy_row_async<K>(mine + ((s & (ST - 1)) * NV + v) * ROW, src[v] + s * step);
-      }
-    }
-    copy_commit();
-  };
   if constexpr (RING) {
 #pragma unroll
-    for (int s = 0; s < ST - 1; ++s) fetch(s);
+    for (int s = 0; s < ST - 1; ++s) ring_fetch<K, NV, ST>(mine, src, step, s, n, active);
   }
 
   int lam[K];
@@ -404,22 +452,7 @@ sweep_wta_kernel(const int16_t* __restrict__ C, const uint16_t* __restrict__ dsa
       const int s = s0 + j;
       if (s < n) {
         Row<K> r[NV];
-        if constexpr (RING) {
-          fetch(s + ST - 1);
-          copy_wait<ST - 1>();  // this lane's copies of step s have landed
-#pragma unroll
-          for (int v = 0; v < NV; ++v) {
-            load_row<K, true>(reinterpret_cast<const uint16_t*>(
-                                  mine + ((s & (ST - 1)) * NV + v) * ROW), K, r[v]);
-          }
-        } else {
-#pragma unroll
-          for (int v = 0; v < NV; ++v) {
-#pragma unroll
-            for (int i = 0; i < (K + 1) / 2; ++i) r[v].w[i] = 0;
-            if (active) load_row<K, VEC>(src[v] + s * step, nvalid, r[v]);
-          }
-        }
+        rows_get<K, VEC, NV, ST>(r, mine, src, step, s, n, nvalid, active);
         int c[K], delta[K];
 #pragma unroll
         for (int k = 0; k < K; ++k) c[k] = row_s16<K>(r[0], k);
@@ -495,6 +528,104 @@ sweep_wta_kernel(const int16_t* __restrict__ C, const uint16_t* __restrict__ dsa
   if constexpr (RING) copy_wait<0>();  // no copy outlives the block
 }
 
+// Steps of sweep_sum_kernel's DP issued between two loop tests (unrolled);
+// the S rows of one step are stored while the next step's DP runs.
+constexpr int SUM_BATCH = 4;
+
+// One step's S row, v[k] for d = lane * K + k, stored at p (or added onto
+// what p holds): 16-byte stores where VEC and K >= 4 (p 16-byte aligned),
+// 8-byte where VEC and K == 2, else the first `valid` values one by one.
+template <int K, bool VEC>
+__device__ __forceinline__ void store_sum_row(int32_t* p, int valid, int (&v)[K], int accumulate) {
+  if constexpr (VEC && K >= 4) {
+#pragma unroll
+    for (int i = 0; i < K / 4; ++i) {
+      int4* q = reinterpret_cast<int4*>(p) + i;
+      int4 o = make_int4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+      if (accumulate) {
+        const int4 a = *q;
+        o = make_int4(o.x + a.x, o.y + a.y, o.z + a.z, o.w + a.w);
+      }
+      *q = o;
+    }
+  } else if constexpr (VEC && K == 2) {
+    int2* q = reinterpret_cast<int2*>(p);
+    int2 o = make_int2(v[0], v[1]);
+    if (accumulate) {
+      const int2 a = *q;
+      o = make_int2(o.x + a.x, o.y + a.y);
+    }
+    *q = o;
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (k < valid) p[k] = v[k] + (accumulate ? p[k] : 0);
+    }
+  }
+}
+
+// The last direction as sweep_wta_kernel sweeps it (the same ring and DP),
+// storing S = nd*C + the NVOL u16 volumes + its deltas per step, int32
+// (H, W, D); accumulate adds onto S instead (a later pass of a long
+// direction list). VEC as for sweep_wta_kernel, with S aligned to
+// min(4K, 16) bytes.
+template <int K, bool VEC, int NVOL>
+__global__ void __launch_bounds__(32 * SWEEP_WARPS, WTA_MIN_BLOCKS<K>)
+sweep_sum_kernel(const int16_t* __restrict__ C, const uint16_t* __restrict__ dsa,
+                 const uint16_t* __restrict__ dsb, int32_t* __restrict__ S, int H, int W,
+                 int D, int dx, int dy, int nd, int P1, int P2, int accumulate) {
+  constexpr bool RING = VEC && K >= 2;
+  constexpr int NV = 1 + NVOL;  // rows per step: C (, dsa (, dsb))
+  constexpr int ST = WTA_STAGES<K>;
+  constexpr int ROW = 64 * K;  // bytes of one warp's row
+  __shared__ __align__(16) uint8_t ring[RING ? SWEEP_WARPS * ST * NV * ROW : 16];
+  const int lane = threadIdx.x & 31;
+  int y, x;
+  if (!path_start(blockIdx.x * SWEEP_WARPS + (threadIdx.x >> 5), dx, dy, H, W, y, x)) return;
+  const int n = path_steps(y, x, dx, dy, H, W);
+  const long long step = ((long long)dy * W + dx) * D;  // elements per path step
+  const size_t first = ((size_t)y * W + x) * D + (size_t)lane * K;
+  const uint16_t* src[3] = {reinterpret_cast<const uint16_t*>(C) + first,
+                            NVOL >= 1 ? dsa + first : nullptr, NVOL >= 2 ? dsb + first : nullptr};
+  const int nvalid = D - lane * K;  // with VEC, either <= 0 or >= K
+  const bool active = nvalid > 0;
+  uint8_t* mine = ring + (threadIdx.x >> 5) * (ST * NV * ROW) + lane * 2 * K;
+  if constexpr (RING) {
+#pragma unroll
+    for (int s = 0; s < ST - 1; ++s) ring_fetch<K, NV, ST>(mine, src, step, s, n, active);
+  }
+  int32_t* sp = S + first;
+
+  int lam[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) lam[k] = lane * K + k < D ? 0 : BIG;
+  for (int s0 = 0; s0 < n; s0 += SUM_BATCH) {
+#pragma unroll
+    for (int j = 0; j < SUM_BATCH; ++j) {
+      const int s = s0 + j;
+      if (s < n) {
+        Row<K> r[NV];
+        rows_get<K, VEC, NV, ST>(r, mine, src, step, s, n, nvalid, active);
+        int c[K], delta[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) c[k] = row_s16<K>(r[0], k);
+        dp_step<K>(lam, c, delta, lane, D, P1, P2);
+        if (active) {
+          int v[K];
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            v[k] = nd * c[k] + delta[k];
+            if constexpr (NVOL >= 1) v[k] += (int)row_u16<K>(r[1], k);
+            if constexpr (NVOL >= 2) v[k] += (int)row_u16<K>(r[2], k);
+          }
+          store_sum_row<K, VEC>(sp + s * step, nvalid, v, accumulate);
+        }
+      }
+    }
+  }
+  if constexpr (RING) copy_wait<0>();  // no copy outlives the block
+}
+
 int num_paths(int dx, int dy, int H, int W) {
   if (dy == 0) return H;
   if (dx == 0) return W;
@@ -560,6 +691,45 @@ int launch_wta(const void* C, const void* dsa, const void* dsb, void* disp,
   return (int)cudaGetLastError();
 }
 
+template <int K, bool VEC, int NVOL>
+void launch_sum_instance(const void* C, const void* dsa, const void* dsb, void* S, int H,
+                         int W, int D, int dx, int dy, int nd, int P1, int P2,
+                         int accumulate, cudaStream_t stream) {
+  const int blocks = (num_paths(dx, dy, H, W) + SWEEP_WARPS - 1) / SWEEP_WARPS;
+  sweep_sum_kernel<K, VEC, NVOL><<<blocks, 32 * SWEEP_WARPS, 0, stream>>>(
+      (const int16_t*)C, (const uint16_t*)dsa, (const uint16_t*)dsb, (int32_t*)S, H, W, D,
+      dx, dy, nd, P1, P2, accumulate);
+}
+
+template <int K>
+int launch_sum(const void* C, const void* dsa, const void* dsb, void* S, int H, int W,
+               int D, int dx, int dy, int nd, int P1, int P2, int accumulate, int vec,
+               cudaStream_t stream) {
+  const unsigned align = K >= 8 ? 16u : 2u * K;
+  const unsigned salign = K >= 4 ? 16u : 4u * K;
+  if (dsb && !dsa) return (int)cudaErrorInvalidValue;
+  if (vec && (D % K != 0 ||
+              ((uintptr_t)C | (uintptr_t)dsa | (uintptr_t)dsb) % align != 0 ||
+              (uintptr_t)S % salign != 0)) {
+    return (int)cudaErrorInvalidValue;  // the caller asked for a layout it lacks
+  }
+#define SRCV_SUM_INSTANCE(VV, NN)                                                   \
+  launch_sum_instance<K, VV, NN>(C, dsa, dsb, S, H, W, D, dx, dy, nd, P1, P2, accumulate, \
+                                 stream)
+  const int nvol = dsb ? 2 : (dsa ? 1 : 0);
+  if (vec) {
+    if (nvol == 2) SRCV_SUM_INSTANCE(true, 2);
+    else if (nvol == 1) SRCV_SUM_INSTANCE(true, 1);
+    else SRCV_SUM_INSTANCE(true, 0);
+  } else {
+    if (nvol == 2) SRCV_SUM_INSTANCE(false, 2);
+    else if (nvol == 1) SRCV_SUM_INSTANCE(false, 1);
+    else SRCV_SUM_INSTANCE(false, 0);
+  }
+#undef SRCV_SUM_INSTANCE
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -606,6 +776,27 @@ int srcv_sgm_sweep_wta(const void* C, const void* dsa, const void* dsb,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SRCV_WTA
+}
+
+// Last direction with S stored: S (H, W, D) int32 = nd*C + dsa + dsb + the
+// direction's deltas, written (accumulate = 0) or added onto (1). dsa, dsb:
+// u16 delta volumes, either may be null (dsb only with dsa). vec as for
+// srcv_sgm_sweep_wta, with S also aligned to min(4K, 16) bytes.
+int srcv_sgm_sweep_sum(const void* C, const void* dsa, const void* dsb, void* S, int H,
+                       int W, int D, int dx, int dy, int nd, int P1, int P2,
+                       int accumulate, int vec, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+#define SRCV_SUM(KK) \
+  return launch_sum<KK>(C, dsa, dsb, S, H, W, D, dx, dy, nd, P1, P2, accumulate, vec, s)
+  switch (lanes_k(D)) {
+    case 1: SRCV_SUM(1);
+    case 2: SRCV_SUM(2);
+    case 4: SRCV_SUM(4);
+    case 8: SRCV_SUM(8);
+    case 16: SRCV_SUM(16);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SRCV_SUM
 }
 
 }  // extern "C"

@@ -10,7 +10,8 @@ ones. ``op_chain`` applies REPS steps to an (H, W) array, each step
 
 in the array's own dtype (float32, int32, int16, uint16 or bfloat16). The
 kernel is ``csrc/op_chain.cu``, with its REPS steps written out as the
-reference writes them; a CPU tensor takes the plain version.
+reference writes them and 16-bit elements two to a register; a CPU tensor
+takes the plain version.
 """
 
 from __future__ import annotations

@@ -9,13 +9,15 @@ replace the TPU kernels of ``ops/pallas/sgm_pallas.py``:
   ``_sweep_hT``, ``_sweep_horizontal``): one path direction, writing or
   adding its (L - C) deltas onto a u16 volume;
 - ``sgm_sweep_wta`` (``_sweep_hT_wta``): the last direction, FUSED_DIR, with
-  WTA fused, so the aggregated volume S never reaches device memory.
+  WTA fused, so the aggregated volume S never reaches device memory;
+- ``sgm_sweep_sum`` (the S assembly of ``sgm_aggregate_pallas``): the last
+  direction with S = nd*C + the delta volumes + its deltas stored, int32.
 
-``sgm_wta`` (``sgm_wta_pallas``) and ``sgm_aggregate``
-(``sgm_aggregate_pallas``, the full S volume) dispatch on the device of the
-cost volume: CPU takes the plain version, CUDA launches the kernels (or
-raises). Delta volumes hold u16 bits in int16-typed tensors; ``u16`` widens
-them.
+``sgm_wta`` (``sgm_wta_pallas``: path sweeps + ``sgm_sweep_wta``) and
+``sgm_aggregate`` (``sgm_aggregate_pallas``, the full S volume: path sweeps +
+``sgm_sweep_sum``) dispatch on the device of the cost volume: CPU takes the
+plain version, CUDA launches the kernels (or raises). Delta volumes hold u16
+bits in int16-typed tensors; ``u16`` widens them.
 
 The standalone WTA pass, on no main path, is the wrapper of ``csrc/wta.cu``:
 
@@ -51,7 +53,8 @@ FUSED_DIR = (0, 1)
 _BIG = 1 << 29
 
 # Kernel launches by this module's wrappers (read and reset by chip_smoke.py).
-launches = {"sgm_path_sweep": 0, "sgm_sweep_wta": 0, "wta_volume": 0, "wta_packed": 0}
+launches = {"sgm_path_sweep": 0, "sgm_sweep_wta": 0, "sgm_sweep_sum": 0, "wta_volume": 0,
+            "wta_packed": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -138,13 +141,19 @@ def wta_disparity(S: torch.Tensor, min_disp: int, uniqueness_ratio: int):
     return wta_maps(S, min_disp, uniqueness_ratio)[:2]
 
 
+def sweep_sum_plain(C, partial, nd: int, p1: int, p2: int,
+                    direction: Tuple[int, int] = FUSED_DIR) -> torch.Tensor:
+    """What sgm_sweep_sum computes: S = nd*C + partial + the last direction's
+    deltas, (H, W, D) int32. partial: int32 sum of the other deltas."""
+    C = C.to(torch.int32)
+    return nd * C + partial.to(torch.int32) + path_delta_plain(C, *direction, p1, p2)
+
+
 def sweep_wta_plain(C, partial, nd: int, p1: int, p2: int, uniqueness_ratio: int,
                     min_disp: int, direction: Tuple[int, int] = FUSED_DIR):
-    """What sgm_sweep_wta computes: S = nd*C + partial + the last direction's
-    deltas, reduced by wta_maps. partial: int32 sum of the other deltas."""
-    C = C.to(torch.int32)
-    S = nd * C + partial.to(torch.int32) + path_delta_plain(C, *direction, p1, p2)
-    return wta_maps(S, min_disp, uniqueness_ratio)
+    """What sgm_sweep_wta computes: sweep_sum_plain's S reduced by wta_maps."""
+    return wta_maps(sweep_sum_plain(C, partial, nd, p1, p2, direction), min_disp,
+                    uniqueness_ratio)
 
 
 def sgm_wta_plain(C, p1: int, p2: int, num_directions: int = 8,
@@ -269,17 +278,79 @@ def path_deltas_cuda(C: torch.Tensor, num_directions: int, p1: int, p2: int,
     return vols
 
 
+# Directions one sgm_sweep_sum covers: two u16 volumes of four, and its own.
+SUM_PASS = 9
+
+
+def aggregate_passes(directions: Sequence[Tuple[int, int]]):
+    """How sgm_aggregate_cuda covers a direction list: one sgm_sweep_sum pass
+    per SUM_PASS entries, each (fused, groups). The fused direction is
+    FUSED_DIR where the pass holds it, else its last entry; the others, in
+    order, fill at most two u16 groups of at most four. Duplicates stay, so
+    they are summed."""
+    passes = []
+    for i in range(0, len(directions), SUM_PASS):
+        rest = list(directions[i:i + SUM_PASS])
+        fused = FUSED_DIR if FUSED_DIR in rest else rest[-1]
+        rest.remove(fused)
+        passes.append((fused, [g for g in (rest[:4], rest[4:]) if g]))
+    return passes
+
+
+def sweep_sum_cuda(C: torch.Tensor, vols: Sequence[torch.Tensor], nd: int, p1: int, p2: int,
+                   direction: Tuple[int, int] = FUSED_DIR,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel: the last direction's sweep storing S = nd*C + sum(vols) + its
+    deltas, (H, W, D) int32, in a new tensor or added onto `out`. vols: zero,
+    one or two u16 delta volumes."""
+    _require_cuda_cost(C)
+    if len(vols) > 2:
+        raise ValueError(f"sweep_sum_cuda takes at most two delta volumes, got {len(vols)}")
+    if tuple(direction) not in DIRS_8:
+        raise ValueError(f"direction must be a unit step (a member of DIRS_8), got {direction}")
+    for ds in vols:
+        if ds.shape != C.shape or ds.dtype != torch.int16 or not ds.is_contiguous():
+            raise ValueError("delta volumes must be contiguous int16 tensors of C's shape")
+    if out is None:
+        S = torch.empty(C.shape, dtype=torch.int32, device=C.device)
+    elif out.shape != C.shape or out.dtype != torch.int32 or not out.is_contiguous():
+        raise ValueError("out must be a contiguous int32 tensor of C's shape")
+    else:
+        S = out
+    H, W, D = C.shape
+    align_s = min(4 * lanes_k(D), 16)
+    vec = (sweep_vector_path(D, *(t.data_ptr() for t in (C, *vols)))
+           and S.data_ptr() % align_s == 0)
+    ptrs = [v.data_ptr() for v in vols] + [None] * (2 - len(vols))
+    lib = _build.kernels_library()
+    with torch.cuda.device(C.device):
+        err = lib.srcv_sgm_sweep_sum(
+            C.data_ptr(), *ptrs, S.data_ptr(), H, W, D, direction[0], direction[1], nd,
+            p1, p2, int(out is not None), int(vec), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, err, "sgm_sweep_sum")
+    _build.count(launches, "sgm_sweep_sum")
+    return S
+
+
 def sgm_aggregate_cuda(C: torch.Tensor, p1: int, p2: int,
                        directions: Sequence[Tuple[int, int]] = DIRS_8) -> torch.Tensor:
-    """Kernels: S = nd*C + the deltas of every direction, FUSED_DIR included,
-    swept in u16 groups of at most 4 -> (H, W, D) int32."""
+    """Kernels: S = len(directions)*C + the deltas of every direction ->
+    (H, W, D) int32. Each pass of aggregate_passes sweeps its groups into
+    u16 volumes, then sgm_sweep_sum sweeps its fused direction and writes S
+    (the first pass) or adds onto it. 8 paths: 7 path sweeps + 1."""
     _require_cuda_cost(C)
     directions = list(directions)
-    S = len(directions) * C.to(torch.int32)
-    acc = torch.empty_like(C)
-    for i in range(0, len(directions), 4):
-        _sweep_group(C, acc, directions[i:i + 4], p1, p2)
-        S += u16(acc)
+    if not directions:
+        return torch.zeros(C.shape, dtype=torch.int32, device=C.device)
+    S, vols = None, []
+    for fused, groups in aggregate_passes(directions):
+        while len(vols) < len(groups):
+            vols.append(torch.empty_like(C))
+        for vol, group in zip(vols, groups):
+            _sweep_group(C, vol, group, p1, p2)
+        S = sweep_sum_cuda(C, vols[:len(groups)], 1 + sum(map(len, groups)), p1, p2, fused,
+                           out=S)
     return S
 
 

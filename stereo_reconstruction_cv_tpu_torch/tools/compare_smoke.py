@@ -10,10 +10,13 @@ between a tree's two runs. Each run's full log goes to DIR (default
 ``build/compare_smoke``); the numbers read from the logs are written to
 DIR/summary.json and printed, with the card's name and power limit: kernel
 times at 720p x 128 and 4K x 256, each sweep direction, the fused sweep
-with each candidate direction, the LR check at 720p and the speckle kernels
-on each map (their label launches apart) where the log has them, and config
+with each candidate direction, the S-volume route (``sgm_aggregate``, 5 and
+8 paths, its peak memory, and ``sgm_sweep_sum``), the LR check at 720p,
+the speckle kernels on each map (their label launches apart), each op-chain
+case at each size and the SASS min counts, where the log has them; config
 2 and config 3 s/pair, device busy time and idle share (config 3's peak
-memory too). Exit code 0 when all four runs exit 0.
+memory too); and each fused-sweep kernel instance's registers and spill
+bytes from the tree's build log. Exit code 0 when all four runs exit 0.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ import sys
 import time
 from pathlib import Path
 
+from stereo_reconstruction_cv_tpu_torch import _build
+
 ROOT = Path(__file__).resolve().parents[2]
 
 # (key, pattern): the first group of the first match is the number.
@@ -37,6 +42,13 @@ _PATTERNS = (
     ("sgm_sweep_wta 720p 8-dir ms", r"\[720p 8-dir\] sgm_sweep_wta: equal .*?kernel ([\d.]+) ms"),
     ("sgm_sweep_wta 720p 5-dir ms", r"\[720p 5-dir\] sgm_sweep_wta: equal .*?kernel ([\d.]+) ms"),
     ("sgm_aggregate 720p 8-dir ms", r"\[720p 8-dir\] sgm_aggregate \(S volume\).*?kernels ([\d.]+) ms"),
+    ("sgm_aggregate 720p 5-dir ms", r"\[720p 5-dir\] sgm_aggregate \(S volume\).*?kernels ([\d.]+) ms"),
+    ("sgm_aggregate 720p 8-dir peak GiB",
+     r"\[720p 8-dir\] sgm_aggregate \(S volume\).*?peak ([\d.]+) GiB"),
+    ("sgm_aggregate 720p 5-dir peak GiB",
+     r"\[720p 5-dir\] sgm_aggregate \(S volume\).*?peak ([\d.]+) GiB"),
+    ("sgm_sweep_sum 720p 8-dir ms", r"\[720p 8-dir\] sgm_sweep_sum: equal; kernel ([\d.]+) ms"),
+    ("sgm_sweep_sum 720p 5-dir ms", r"\[720p 5-dir\] sgm_sweep_sum: equal; kernel ([\d.]+) ms"),
     ("lr_check 720p 8-dir ms", r"\[720p 8-dir\] lr_check: equal; kernel ([\d.]+) ms"),
     ("lr_check 720p 5-dir ms", r"\[720p 5-dir\] lr_check: equal; kernel ([\d.]+) ms"),
     ("config 2 s/pair", r"sgbm_disparity 720p x128 8-dir \(device speckle\).*?warm median ([\d.e-]+) s"),
@@ -81,6 +93,13 @@ def parse(log: str) -> dict:
     for m in re.finditer(r"\[([^\]]+)\] speckle_labels launches \(ms, profiler\): (\{.*\})", log):
         for k, v in json.loads(m.group(2)).items():
             out[f"speckle_labels {m.group(1)} {k} ms"] = v
+    for m in re.finditer(r"\[op_chain \((\d+), (\d+)\) torch\.(\w+) ([\w+]+)\] equal; kernel "
+                         r"([\d.]+) us", log):
+        out[f"op_chain {m.group(1)}x{m.group(2)} {m.group(3)} {m.group(4)} us"] = float(m.group(5))
+    m = re.search(r"^op_chain SASS, add\+min at W = 512: .*?(\{.*\})$", log, re.M)
+    if m:
+        for k, v in json.loads(m.group(1)).items():
+            out[f"op_chain SASS {k} mins"] = v["min_instructions"] if isinstance(v, dict) else v
     m = re.search(r'^(\{"kernels": .*\})$', log, re.M)
     if m:
         for k in json.loads(m.group(1))["kernels"]:
@@ -89,6 +108,20 @@ def parse(log: str) -> dict:
          or re.search(r'^(.*)\n\{"ok": true', log, re.M))
     if m:
         out["card"] = m.group(1).strip()
+    return out
+
+
+def ptxas(tree: Path) -> dict:
+    """Registers and spill bytes of each fused-sweep instance (sweep_wta,
+    sweep_sum), from ptxas's report in the newest kernel build log under
+    `tree`'s build/ (the build its chip_smoke.py run just made)."""
+    logs = sorted((tree / "build").glob("libsrcv_kernels-*.log"), key=lambda p: p.stat().st_mtime)
+    out = {}
+    for entry, r in (_build.ptxas_report(logs[-1].read_text()).items() if logs else ()):
+        if "sweep_wta_kernel" in entry or "sweep_sum_kernel" in entry:
+            name = _build.kernel_instance(entry)
+            out[f"ptxas {name} registers"] = r["registers"]
+            out[f"ptxas {name} spill bytes"] = r["spill_stores"] + r["spill_loads"]
     return out
 
 
@@ -114,7 +147,7 @@ def main(argv=None) -> int:
         (out_dir / f"run{i}_{name}.log").write_text(log)
         rc_all |= proc.returncode
         runs.append({"run": i, "tree": name, "rc": proc.returncode, "wall_s": wall,
-                     **parse(proc.stdout)})
+                     **parse(proc.stdout), **ptxas(trees[name])})
         print(f"run {i} ({name}): rc {proc.returncode}, {wall:.1f} s", flush=True)
     summary = {"trees": {k: str(v) for k, v in trees.items()}, "runs": runs}
     (out_dir / "summary.json").write_text(json.dumps(summary, indent=1))

@@ -6,7 +6,8 @@ per launch, timed with CUDA events around the replay of a CUDA graph of
 launches (a launch takes less device time than its wrapper takes on the
 host, so back-to-back calls would time the host). Prints, per case, the
 time of one launch and the rate in cell-steps per second (H * W * REPS /
-time).
+time): first at the reference's (1024, 512), then at (16384, 512), where
+the card is full and the rate, not the launch ramp, is read.
 
     python -m stereo_reconstruction_cv_tpu_torch.tools.micro_i16
 
@@ -30,10 +31,39 @@ CASES = (
     + [(dt, ("roll", "add", "min")) for dt in (torch.float32, torch.int32, torch.int16,
                                                torch.uint16)]
 )
+SIZES = ((1024, 512), (16384, 512))  # the reference's, then one that fills the card
+
+# The largest value of each dtype that edge_values draws (see there).
+EDGE_TOP = {torch.int16: 2**15 - 1, torch.uint16: 2**16 - 1, torch.int32: 2**31 - 1,
+            torch.float32: 2**24 - 7}
 
 
-def make_input(dtype, H: int = 1024, W: int = 512, device="cpu") -> torch.Tensor:
-    x = np.random.default_rng(0).integers(1, 1000, (H, W))
+def edge_values(dtype, H: int, W: int, seed: int = 0) -> np.ndarray:
+    """(H, W) int64 values where the chain's +1 is not plain integer
+    arithmetic in `dtype`: an integer dtype's largest value minus 0..7 (+1
+    wraps to the smallest), bfloat16 integers in [2^8, 2^12) (+1 rounds to
+    an even neighbour, or back), float32 in [2^24 - 14, 2^24 - 7] (+1 stops
+    being exact after 7 to 14 steps: past 2^24 each step rounds). float32
+    starts below 2^24 because XLA folds a run of float adds of a constant
+    into one add, so a reference chain of adds alone that crossed 2^24 in a
+    few steps would round once, not each step. A quarter of the values are
+    integers in [1, 1000), so that edge values meet ordinary ones in the
+    roll."""
+    rng = np.random.default_rng(seed)
+    ordinary = rng.random((H, W)) < 0.25
+    low = rng.integers(1, 1000, (H, W))
+    if dtype == torch.bfloat16:
+        edge = rng.integers(2**8, 2**12, (H, W))
+    else:
+        edge = EDGE_TOP[dtype] - rng.integers(0, 8, (H, W))
+    return np.where(ordinary, low, edge)
+
+
+def make_input(dtype, H: int = 1024, W: int = 512, device="cpu",
+               edge: bool = False) -> torch.Tensor:
+    """The reference's input, integers in [1, 1000) from default_rng(0); or,
+    with edge, edge_values."""
+    x = edge_values(dtype, H, W) if edge else np.random.default_rng(0).integers(1, 1000, (H, W))
     return torch.from_numpy(x).to(dtype).to(device)
 
 
@@ -58,7 +88,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     print(card(), flush=True)
-    ok = [run(dtype, ops) for dtype, ops in CASES]
+    ok = []
+    for H, W in SIZES:
+        print(f"(H, W) = ({H}, {W})", flush=True)
+        ok += [run(dtype, ops, H, W) for dtype, ops in CASES]
     return 0 if all(ok) else 1
 
 

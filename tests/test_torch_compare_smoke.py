@@ -2,6 +2,7 @@
 prints them (the runs themselves need a card)."""
 
 import json
+import os
 
 import pytest
 
@@ -100,3 +101,79 @@ def test_parse_reads_lr_busy_idle_and_peak_lines():
         "config 3 device busy ms": 34.179, "config 3 idle share": 0.1489,
         "config 3 s/pair": 0.0357, "config 3 peak GiB": 7.850,
     }
+
+
+def test_parse_reads_the_s_volume_route_and_op_chain_lines():
+    log = "\n".join([
+        "[720p 8-dir] sgm_sweep_sum: equal; kernel 0.512 ms, plain 130.1 ms; bound 0.3171 ms "
+        "(bytes), share 0.6193",
+        "[720p 8-dir] sgm_aggregate (S volume): equal; wta_maps(S) == sgm_wta; kernels 2.401 ms, "
+        "plain 1250.2 ms; bound 0.1902 ms (bytes), share 0.0792; route bytes bound 1.5213 ms, "
+        'share 0.6336; peak 0.7910 GiB allocated by the call (C 0.1978 GiB); launches '
+        '{"sgm_path_sweep": 7, "sgm_sweep_sum": 1}',
+        "[720p 5-dir] sgm_aggregate (S volume): equal; wta_maps(S) == sgm_wta; kernels 4.429 ms, "
+        "plain 1237.0 ms; bound 0.1902 ms (bytes), share 0.0429",
+        "[op_chain (1024, 512) torch.int16 add+min] equal; kernel 6.10 us (graph replay); "
+        "back-to-back eager calls 30.00 us; plain 2.800 ms",
+        "[op_chain (16384, 512) torch.float32 roll+add+min] equal; kernel 80.50 us (graph replay)",
+        'op_chain SASS, add+min at W = 512: {"int16": {"min_instructions": 768, '
+        '"registers_a_lane": 8, "opcodes": {"VIADDMNMX.S16x2": 768}}}',
+    ])
+    assert CS.parse(log) == {
+        "sgm_sweep_sum 720p 8-dir ms": 0.512, "sgm_aggregate 720p 8-dir ms": 2.401,
+        "sgm_aggregate 720p 8-dir peak GiB": 0.7910, "sgm_aggregate 720p 5-dir ms": 4.429,
+        "op_chain 1024x512 int16 add+min us": 6.10,
+        "op_chain 16384x512 float32 roll+add+min us": 80.50,
+        "op_chain SASS int16 mins": 768,
+    }
+    # The parent's SASS line: a count per mangled kernel name.
+    old = 'op_chain SASS, add+min at W = 512: min instructions {"_Z4kernIsLi16ELi6EE": 1536}'
+    assert CS.parse(old) == {"op_chain SASS _Z4kernIsLi16ELi6EE mins": 1536}
+
+
+PTXAS_LOG = """$ nvcc -c -o a.o sgm.cu
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116sweep_wta_kernelILi4ELb1ELb1EEEvPKsPKtS4_PfPhPiS7_iiiiiiiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116sweep_wta_kernelILi4ELb1ELb1EEEvPKsPKtS4_PfPhPiS7_iiiiiiiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, 24576 bytes smem, 452 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116sweep_sum_kernelILi8ELb0ELi2EEEvPKsPKtS4_Piiiiiiiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116sweep_sum_kernelILi8ELb0ELi2EEEvPKsPKtS4_Piiiiiiiiiii
+    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 128 registers, 16 bytes smem, 420 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117path_sweep_kernelILi4ELb1EEEvPKsPtiiiiiiiii' for 'sm_90a'
+ptxas info    : Used 64 registers, 400 bytes cmem[0]
+$ nvcc -shared -o lib.so a.o
+"""
+
+
+def test_ptxas_reads_the_fused_sweep_instances_of_the_newest_build(tmp_path):
+    (tmp_path / "build").mkdir()
+    (tmp_path / "build" / "libsrcv_kernels-0.log").write_text("no report")
+    newest = tmp_path / "build" / "libsrcv_kernels-1.log"
+    newest.write_text(PTXAS_LOG)
+    os.utime(newest, (2e9, 2e9))
+    assert CS.ptxas(tmp_path) == {
+        "ptxas sweep_wta_kernel<4,1,1> registers": 96,
+        "ptxas sweep_wta_kernel<4,1,1> spill bytes": 0,
+        "ptxas sweep_sum_kernel<8,0,2> registers": 128,
+        "ptxas sweep_sum_kernel<8,0,2> spill bytes": 12,
+    }
+    assert CS.ptxas(tmp_path / "nothing built") == {}
+
+
+@pytest.mark.parametrize("entry,short", [
+    ("_ZN38_GLOBAL__N__2ae61b97_6_sgm_cu_9d433ce516sweep_wta_kernelILi4ELb1ELb1EEEvPKsPKtS4_PfPhPiS7_"
+     "iiiiiiiiiii", "sweep_wta_kernel<4,1,1>"),
+    ("_ZN38_GLOBAL__N__2ae61b97_6_sgm_cu_9d433ce516sweep_sum_kernelILi16ELb0ELi2EEEvPKsPKtS4_Piiiii",
+     "sweep_sum_kernel<16,0,2>"),
+    ("_ZN44_GLOBAL__N__3942167b_11_op_chain_cu_30eaf52b15op_chain_kernelIsLi16ELi6EEEvPKT_PS1_iS1_",
+     "op_chain_kernel<16,6>"),
+    ("_Z6kernelPf", "_Z6kernelPf"),
+    ("_ZN12_GLOBAL__N_15plainEv", "_ZN12_GLOBAL__N_15plainEv"),
+])
+def test_kernel_instance_names_template_instances(entry, short):
+    """The build's namespaces carry a hash of the source; the short name
+    does not, so two checkouts' instances line up."""
+    from stereo_reconstruction_cv_tpu_torch import _build
+
+    assert _build.kernel_instance(entry) == short

@@ -27,6 +27,7 @@ from stereo_reconstruction_cv_tpu_torch.ops.cuda import lr as LK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import op_chain as OC
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import sgm as SK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import speckle as SPK
+from stereo_reconstruction_cv_tpu_torch.tools import micro_i16
 
 pytestmark = pytest.mark.gpu
 
@@ -559,3 +560,166 @@ def test_sweep_wta_unaligned_second_volume_takes_the_scalar_path(dev, direction,
     off.copy_(vols[1])
     assert not SK.sweep_vector_path(D, C.data_ptr(), vols[0].data_ptr(), off.data_ptr())
     _fused_equal_plain(C, 8, direction, vols=[vols[0], off])
+
+
+# Direction lists the S-volume route takes: 5 and 8 paths, one direction
+# (zero delta volumes), a list without FUSED_DIR, duplicates, and a list
+# past one sgm_sweep_sum pass (SK.SUM_PASS).
+AGGREGATE_LISTS = {
+    "5": SK.DIRS_5, "8": SK.DIRS_8, "one direction": ((1, -1),),
+    "no FUSED_DIR": ((1, 0), (-1, -1), (1, -1), (-1, 0)),
+    "duplicate": ((1, 0), (0, 1), (1, 0), (-1, 1), (0, 1)),
+    "two passes": SK.DIRS_8 + SK.DIRS_5 + ((0, 1),),
+}
+
+
+@pytest.mark.parametrize("case", list(AGGREGATE_LISTS))
+@pytest.mark.parametrize("H,W,D", [(19, 37, 100), (11, 23, 24), (6, 40, 256)])
+def test_sgm_aggregate_direction_lists_equal_plain(dev, case, H, W, D):
+    """Each list goes through aggregate_passes' path sweeps and one
+    sgm_sweep_sum a pass, and nothing else."""
+    dirs = AGGREGATE_LISTS[case]
+    rng = np.random.default_rng(H * D + len(dirs))
+    C = torch.from_numpy(rng.integers(0, 20000, (H, W, D), dtype=np.int16)).to(dev)
+    before = dict(SK.launches)
+    S = SK.sgm_aggregate(C, P1, P2, dirs)
+    torch.cuda.synchronize()
+    assert torch.equal(S, SK.sgm_aggregate_plain(C, P1, P2, dirs))
+    passes = len(SK.aggregate_passes(dirs))
+    assert {k: SK.launches[k] - before[k] for k in SK.launches} == {
+        **dict.fromkeys(SK.launches, 0),
+        "sgm_path_sweep": len(dirs) - passes, "sgm_sweep_sum": passes}
+
+
+def _sum_equal_plain(C, vols, direction, nd=3, out=None):
+    """sgm_sweep_sum against sweep_sum_plain (written, or added onto out)."""
+    C32 = C.to(torch.int32)
+    partial = sum((SK.u16(v) for v in vols), torch.zeros_like(C32))
+    start = None if out is None else out.clone()
+    got = SK.sweep_sum_cuda(C, vols, nd, P1, P2, direction, out=out)
+    ref = SK.sweep_sum_plain(C32, partial, nd, P1, P2, direction)
+    torch.cuda.synchronize()
+    if out is not None:
+        assert got is out
+        ref = ref + start
+    assert got.dtype == torch.int32 and torch.equal(got, ref), (tuple(C.shape), len(vols), direction)
+
+
+def _u16_volumes(rng, shape, dev, n=2):
+    return [torch.from_numpy(rng.integers(0, 1 << 16, shape).astype(np.uint16).view(np.int16)).to(dev)
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("D", [1, 17, 32, 33, 100, 128, 250, 512])
+@pytest.mark.parametrize("H,W", [(1, 1), (1, 45), (45, 1), (7, 9)])
+def test_sweep_sum_volumes_and_shapes_equal_plain(dev, D, H, W):
+    """Zero, one and two delta volumes; K = 1 (D <= 32), D % K != 0 (33,
+    250: the general path), single pixels, rows and columns; a vertical, a
+    horizontal and a diagonal direction."""
+    rng = np.random.default_rng(D * 100 + H * W)
+    C = torch.from_numpy(rng.integers(0, 20000, (H, W, D), dtype=np.int16)).to(dev)
+    vols = _u16_volumes(rng, (H, W, D), dev)
+    for direction in ((0, 1), (-1, 0), (1, -1)):
+        for nv in (0, 1, 2):
+            _sum_equal_plain(C, vols[:nv], direction, nd=1 + 4 * nv)
+
+
+@pytest.mark.parametrize("direction", [(-1, 0), (0, 1)])
+@pytest.mark.parametrize("D", [17, 33, 100, 128, 250, 256, 512])
+@pytest.mark.parametrize("extra", [-1, 0, 1, "33", "64"])
+def test_sweep_sum_path_lengths_equal_plain(dev, direction, D, extra):
+    """Paths one short of, at and one past the cp.async ring's depth, and
+    long ones, with each number of volumes."""
+    P = WTA_STAGES[SK.lanes_k(D)]
+    n = int(extra) if isinstance(extra, str) else P + extra
+    H, W = (3, n) if direction[1] == 0 else (n, 3)
+    rng = np.random.default_rng(D * 100 + n)
+    C = torch.from_numpy(rng.integers(0, 20000, (H, W, D), dtype=np.int16)).to(dev)
+    vols = _u16_volumes(rng, (H, W, D), dev)
+    for nv in (0, 1, 2):
+        _sum_equal_plain(C, vols[:nv], direction)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_sweep_sum_unaligned_volume_and_out_take_the_general_path(dev, D):
+    """A second volume, or an S to add onto, that starts off its vector
+    alignment: the same kernel's general path."""
+    H, W = 13, 41
+    rng = np.random.default_rng(D + 11)
+    C = torch.from_numpy(rng.integers(0, 20000, (H, W, D), dtype=np.int16)).to(dev)
+    vols = _u16_volumes(rng, (H, W, D), dev)
+    buf = torch.empty(H * W * D + 1, dtype=torch.int16, device=dev)
+    off = buf[1:].view(H, W, D)
+    off.copy_(vols[1])
+    assert not SK.sweep_vector_path(D, C.data_ptr(), vols[0].data_ptr(), off.data_ptr())
+    for direction in ((0, 1), (-1, 0)):
+        _sum_equal_plain(C, [vols[0], off], direction)
+        start = torch.from_numpy(rng.integers(-1 << 20, 1 << 20, (H, W, D), dtype=np.int32)).to(dev)
+        sbuf = torch.empty(H * W * D + 1, dtype=torch.int32, device=dev)
+        out = sbuf[1:].view(H, W, D)
+        out.copy_(start)
+        _sum_equal_plain(C, vols, direction, out=out)  # S 4 bytes off 16
+        _sum_equal_plain(C, vols, direction, out=start.clone())
+
+
+def test_sweep_sum_refuses_what_it_does_not_take(dev):
+    C = torch.zeros((4, 5, 16), dtype=torch.int16, device=dev)
+    with pytest.raises(ValueError, match="at most two"):
+        SK.sweep_sum_cuda(C, [C, C, C], 9, P1, P2)
+    with pytest.raises(ValueError, match="unit step"):
+        SK.sweep_sum_cuda(C, [C], 5, P1, P2, (2, 0))
+    with pytest.raises(ValueError, match="out must be"):
+        SK.sweep_sum_cuda(C, [C], 5, P1, P2, out=torch.zeros((4, 5, 16), dtype=torch.int16, device=dev))
+
+
+def test_sgm_aggregate_in_a_cuda_graph(dev):
+    """Captured once, replayed over two cost volumes of one shape in turns."""
+    H, W, D = 24, 70, 128
+    rng = np.random.default_rng(3)
+    Cs = [torch.from_numpy(rng.integers(0, 20000, (H, W, D), dtype=np.int16)).to(dev)
+          for _ in range(2)]
+    C = Cs[0].clone()
+    SK.sgm_aggregate(C, P1, P2)  # the build and the allocator's first blocks, outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        S = SK.sgm_aggregate(C, P1, P2)
+    for k in (0, 1, 0, 1):
+        C.copy_(Cs[k])
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(S, SK.sgm_aggregate_plain(Cs[k], P1, P2)), k
+
+
+@pytest.mark.parametrize("nd", [5, 8])
+def test_sgm_aggregate_peak_memory(dev, nd):
+    """One call holds at most C + its u16 volumes + S, and 5% more."""
+    H, W, D = 96, 512, 128
+    C = torch.from_numpy(np.random.default_rng(nd).integers(0, 20000, (H, W, D), dtype=np.int16)).to(dev)
+    SK.sgm_aggregate(C, P1, P2, SK.directions_for(nd))  # the build, outside the measure
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    S = SK.sgm_aggregate(C, P1, P2, SK.directions_for(nd))
+    torch.cuda.synchronize()
+    vols = 1 if nd == 5 else 2
+    held = C.nbytes + vols * C.nbytes + S.nbytes
+    assert torch.cuda.max_memory_allocated() - base + C.nbytes <= 1.05 * held
+
+
+@pytest.mark.parametrize("H", [1, 37])
+@pytest.mark.parametrize("W", OC.WIDTHS)
+@pytest.mark.parametrize("dtype", list(OC.DTYPES))
+def test_op_chain_wrap_edge_equals_plain(dev, dtype, W, H):
+    """Every op set at the wrap edge (micro_i16.edge_values): integer adds
+    that wrap past the largest value, bf16 and f32 adds that round; W = 32
+    keeps one 16-bit value a register, wider rows two."""
+    x = micro_i16.make_input(dtype, H, W, dev, edge=True)
+    for bits in range(8):
+        ops = [o for o, b in OC.OPS.items() if bits & b]
+        got = OC.op_chain(x, ops)
+        ref = OC.op_chain_plain(x, ops)
+        torch.cuda.synchronize()
+        if dtype == torch.uint16:
+            got, ref = got.view(torch.int16), ref.view(torch.int16)
+        assert torch.equal(got, ref), ops

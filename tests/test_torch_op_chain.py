@@ -5,7 +5,10 @@ The plain ``op_chain_plain`` (CPU tensors) against ``tools/micro_i16.py``'s
 builds it and run under ``pltpu.force_tpu_interpret_mode()``, for all nine
 dtype x ops cases, bit for bit. REPS is cut to a few steps and the shape to
 512 x 128 so that it stays quick; the roll chains pin the direction of
-``pltpu.roll`` (out[i] = x[i - 1]) against ``torch.roll``.
+``pltpu.roll`` (out[i] = x[i - 1]) against ``torch.roll``. The same holds at
+the wrap edge (``micro_i16.edge_values``: integer adds that wrap, float adds
+that round) in all eight op sets, so the kernel's wrap semantics, held to
+the plain version on the card, are the reference's.
 """
 
 import functools
@@ -29,6 +32,8 @@ CACHE_SETTINGS = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile
 H, W, REPS = 512, 128, 6
 CASES = ([(dt, ("add", "min")) for dt in ("float32", "int32", "int16", "uint16", "bfloat16")]
          + [(dt, ("roll", "add", "min")) for dt in ("float32", "int32", "int16", "uint16")])
+ALL_OPS = [(), ("roll",), ("add",), ("roll", "add"), ("min",), ("roll", "min"), ("add", "min"),
+           ("roll", "add", "min")]
 
 
 @pytest.fixture(scope="module")
@@ -84,6 +89,24 @@ def test_chain_matches_reference(micro_i16, monkeypatch, dtype, ops):
         assert not np.array_equal(_plain(xn[:, ::-1], dtype, ops)[:, ::-1], ref)
     else:  # min(x, x + 1) is the identity
         np.testing.assert_array_equal(got, xn)
+
+
+@pytest.mark.parametrize("ops", ALL_OPS, ids=["+".join(o) or "none" for o in ALL_OPS])
+@pytest.mark.parametrize("dtype", ["float32", "int32", "int16", "uint16", "bfloat16"])
+def test_chain_matches_reference_at_the_wrap_edge(micro_i16, monkeypatch, dtype, ops):
+    from stereo_reconstruction_cv_tpu_torch.tools import micro_i16 as tool
+
+    monkeypatch.setattr(micro_i16, "REPS", REPS)
+    x = jnp.asarray(tool.edge_values(getattr(torch, dtype), H, W), getattr(jnp, dtype))
+    as_np = jnp.float32 if dtype == "bfloat16" else x.dtype
+    ref = np.asarray(_reference(micro_i16, x, ops).astype(as_np))
+    xn = np.array(x.astype(as_np))
+    got = _plain(xn, dtype, ops)
+    np.testing.assert_array_equal(got, ref)
+    if "add" in ops and dtype in ("int16", "int32"):  # some adds wrapped
+        assert (got < 0).any() and not (xn < 0).any()
+    if "add" in ops and dtype == "uint16":
+        assert (got < 8).sum() > (xn < 8).sum()
 
 
 def test_wrapper_runs_the_full_chain_and_checks_arguments():

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from stereo_reconstruction_cv_tpu.ops import disparity as RD
-from stereo_reconstruction_cv_tpu.ops.pallas.sgm_pallas import sgm_wta_pallas
+from stereo_reconstruction_cv_tpu.ops.pallas.sgm_pallas import sgm_aggregate_pallas, sgm_wta_pallas
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import sgm as SK
 
 P1, P2 = 8 * 3 * 121, 32 * 3 * 121
@@ -76,18 +76,72 @@ def test_kernel_split_composes_to_the_whole(ndirs):
     assert int(d.min()) >= 0 and int(d.max()) <= P2
 
 
-@pytest.mark.parametrize("ndirs", [5, 8])
-def test_aggregate_groups_compose_to_the_whole(ndirs):
-    """What sgm_aggregate_cuda sums: nd*C plus every direction's deltas (the
-    fused one included) in u16 groups of at most four."""
-    C = torch.from_numpy(_volume(40 + ndirs, (11, 23, 24)))
-    dirs = SK.directions_for(ndirs)
-    S = ndirs * C.to(torch.int32)
-    for i in range(0, ndirs, 4):
-        group = sum(SK.path_delta_plain(C, dx, dy, P1, P2) for dx, dy in dirs[i:i + 4])
-        assert int(group.max()) <= 0xFFFF
-        S += group
+# Direction lists by case; the 5- and 8-path lists keep the ids "5" and "8".
+AGGREGATE_LISTS = {
+    5: SK.DIRS_5,
+    8: SK.DIRS_8,
+    "one direction": ((1, -1),),
+    "no FUSED_DIR": ((1, 0), (-1, -1), (1, -1), (-1, 0)),
+    "duplicate": ((1, 0), (0, 1), (1, 0), (-1, 1), (0, 1)),
+}
+
+
+def _aggregate_by_passes(C, dirs):
+    """sgm_aggregate_cuda's decomposition in plain PyTorch: per pass of
+    aggregate_passes, the u16 volumes of its groups, then sweep_sum_plain
+    over its fused direction (added onto the earlier passes' S)."""
+    S = torch.zeros(C.shape, dtype=torch.int32)
+    for fused, groups in SK.aggregate_passes(dirs):
+        assert len(groups) <= 2 and all(1 <= len(g) <= 4 for g in groups)
+        partial = torch.zeros_like(S)
+        for g in groups:
+            vol = sum(SK.path_delta_plain(C, dx, dy, P1, P2) for dx, dy in g)
+            assert int(vol.max()) <= 0xFFFF
+            partial += vol
+        S += SK.sweep_sum_plain(C, partial, 1 + sum(map(len, groups)), P1, P2, fused)
+    return S
+
+
+@pytest.mark.parametrize("case", list(AGGREGATE_LISTS))
+def test_aggregate_groups_compose_to_the_whole(case):
+    """What sgm_aggregate_cuda computes: u16 volumes of every direction but
+    the fused one (FUSED_DIR where the list holds it, else its last entry;
+    duplicates summed), then the fused sweep storing S. Equal to the
+    reference's sgm_aggregate (exact scans) and, for 5 and 8 paths, to
+    sgm_aggregate_pallas in interpret mode."""
+    dirs = AGGREGATE_LISTS[case]
+    Cn = _volume(40 + len(dirs), (11, 23, 24))
+    C = torch.from_numpy(Cn)
+    (fused, groups), = SK.aggregate_passes(dirs)
+    assert fused == (SK.FUSED_DIR if SK.FUSED_DIR in dirs else dirs[-1])
+    assert sorted([fused, *(d for g in groups for d in g)]) == sorted(dirs)
+    S = _aggregate_by_passes(C, dirs)
+    ref = np.asarray(RD.sgm_aggregate(jnp.asarray(Cn), P1, P2, dirs, None, 32))
+    np.testing.assert_array_equal(S.numpy(), ref)
+    if len(dirs) in (5, 8) and set(dirs) == set(SK.directions_for(len(dirs))):
+        pal = sgm_aggregate_pallas(jnp.asarray(Cn), P1, P2, len(dirs), interpret=True)
+        np.testing.assert_array_equal(S.numpy(), np.asarray(pal))
     assert torch.equal(S, SK.sgm_aggregate(C, P1, P2, dirs))
+
+
+def test_aggregate_passes_of_a_long_list_add_up():
+    """Past SUM_PASS directions the fused sweep runs once per pass, each
+    after volumes of at most four, and adds onto S; an empty list is 0."""
+    dirs = SK.DIRS_8 + SK.DIRS_5 + ((0, 1),)
+    passes = SK.aggregate_passes(dirs)
+    assert [1 + sum(map(len, g)) for _, g in passes] == [SK.SUM_PASS, len(dirs) - SK.SUM_PASS]
+    Cn = _volume(47, (9, 14, 24))
+    C = torch.from_numpy(Cn)
+    S = _aggregate_by_passes(C, dirs)
+    ref = np.asarray(RD.sgm_aggregate(jnp.asarray(Cn), P1, P2, dirs, None, 32))
+    np.testing.assert_array_equal(S.numpy(), ref)
+    assert SK.aggregate_passes(()) == []
+    assert not SK.sgm_aggregate(C, P1, P2, ()).any()
+
+
+def test_aggregate_refuses_what_the_kernels_refuse():
+    C = torch.from_numpy(_volume(48, (11, 23, 24)))
+    dirs = SK.DIRS_8
     # One check for both devices: the CPU refuses what the kernels refuse.
     with pytest.raises(ValueError, match="unit steps"):
         SK.sgm_aggregate(C, P1, P2, [(2, 0)])
@@ -172,6 +226,14 @@ def test_probe_tool_pair_and_refusal_without_a_card(monkeypatch, capsys):
     np.testing.assert_array_equal(left[:, 7:], right[:, :-7])
     assert SK.FUSED_DIR in SK.FUSED_CANDIDATES
     assert all(d in SK.DIRS_5 and d in SK.DIRS_8 for d in SK.FUSED_CANDIDATES)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert tool.main() == 2
+    assert "CUDA" in capsys.readouterr().out
+
+
+def test_aggregate_probe_refuses_without_a_card(monkeypatch, capsys):
+    from stereo_reconstruction_cv_tpu_torch.tools import probe_aggregate as tool
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert tool.main() == 2
     assert "CUDA" in capsys.readouterr().out
