@@ -87,6 +87,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import shutil
@@ -103,6 +104,9 @@ SEED = 0
 # Reference calibration anchor of the 4K rig and its 140 mm baseline.
 K_4K = np.array([[2253.71, 0.0, 1929.69], [0.0, 2244.72, 1057.63], [0.0, 0.0, 1.0]])
 BASELINE_M = 0.140
+# Phase 7's rig: x2 = R x1 + T, R SCENE_DEG degrees about SCENE_AXIS.
+SCENE_AXIS, SCENE_DEG = (0.3, 1.0, 0.2), 1.2
+SCENE_T = (-BASELINE_M, 0.004, -0.003)
 
 KERNELS = {
     "cost_volume": ("stereo_reconstruction_cv_tpu_torch/csrc/cost_volume.cu",
@@ -205,6 +209,129 @@ def serpentine_map(rng, H: int, W: int, turns: int):
             valid[y + thick:y + pitch, (W - 16, 8)[k % 2]:(W - 8, 16)[k % 2]] = True
     disp = 30.0 + rng.uniform(-1.0, 1.0, (H, W))
     return np.where(valid, disp, 0.0).astype(np.float32), valid
+
+
+# The synthetic scene of phase 7: planes in camera 1's frame (x right, y down,
+# z forward, metres), each (centre, normal, half extents along its two in-plane
+# axes; None for an unbounded plane). Depths 2.5-5 m, no two parallel, so no
+# single homography explains the pair.
+SCENE_PLANES = (
+    ((0.0, 0.0, 5.0), (0.12, -0.08, -1.0), None),
+    ((-0.9, -0.25, 2.9), (0.35, 0.1, -1.0), (1.1, 0.8)),
+    ((1.0, 0.35, 3.7), (-0.3, 0.2, -1.0), (1.3, 0.9)),
+    ((0.1, 0.9, 4.2), (0.05, 0.6, -1.0), (1.5, 0.6)),
+)
+
+
+def _plane_frames(torch, dtype, device):
+    """(centres (P, 3), unit normals (P, 3), in-plane axes (P, 2, 3),
+    half extents (P, 2), inf where unbounded)."""
+    c = torch.tensor([p[0] for p in SCENE_PLANES], dtype=dtype, device=device)
+    n = torch.tensor([p[1] for p in SCENE_PLANES], dtype=dtype, device=device)
+    n = n / torch.linalg.norm(n, dim=-1, keepdim=True)
+    up = torch.tensor([0.0, 1.0, 0.0], dtype=dtype, device=device).expand_as(n)
+    e1 = torch.linalg.cross(up, n)
+    e1 = e1 / torch.linalg.norm(e1, dim=-1, keepdim=True)
+    e2 = torch.linalg.cross(n, e1)
+    ext = torch.tensor([p[2] if p[2] is not None else (math.inf, math.inf) for p in SCENE_PLANES],
+                       dtype=dtype, device=device)
+    return c, n, torch.stack([e1, e2], dim=1), ext
+
+
+def scene_hit(torch, origin, dirs):
+    """First hit of rays origin + t dirs (dirs (..., 3)) with the scene:
+    (t (...,), plane index (...,), in-plane coordinates (..., 2))."""
+    c, n, axes, ext = _plane_frames(torch, dirs.dtype, dirs.device)
+    o = torch.as_tensor(origin, dtype=dirs.dtype, device=dirs.device)
+    denom = dirs @ n.T                                   # (..., P)
+    t = ((c - o) * n).sum(-1) / denom                    # (..., P)
+    hit = o + t[..., None] * dirs[..., None, :]          # (..., P, 3)
+    ab = torch.einsum("...pk,pjk->...pj", hit - c, axes)  # (..., P, 2)
+    inside = (ab.abs() <= ext).all(-1) & (t > 0)
+    t = torch.where(inside, t, torch.full_like(t, math.inf))
+    tmin, idx = t.min(dim=-1)
+    ab = torch.gather(ab, -2, idx[..., None, None].expand(*idx.shape, 1, 2))[..., 0, :]
+    return tmin, idx, ab
+
+
+def _hash01(torch, i, j, salt):
+    """Uniform [0, 1) per integer lattice point (int64 i, j >= 0), the same
+    on every device: 31-bit multiply-xorshift rounds, no overflow."""
+    m = 0x7FFFFFFF
+    h = (i * 0x2545F491 + j * 0x6C8E9CF5 + salt * 0x1B873593) & m
+    for k in (0x5BD1E995, 0x27D4EB2F, 0x165667B1):
+        h = ((h ^ (h >> 15)) * k) & m
+    h = h ^ (h >> 13)
+    return (h & 0xFFFFFF).to(torch.float32) / float(1 << 24)
+
+
+def _value_noise(torch, a, b, salt):
+    """Bilinear value noise at lattice coordinates (a, b) (float64)."""
+    a = a + 4096.0
+    b = b + 4096.0
+    i0, j0 = torch.floor(a), torch.floor(b)
+    fa, fb = (a - i0).to(torch.float32), (b - j0).to(torch.float32)
+    i0, j0 = i0.to(torch.int64), j0.to(torch.int64)
+    v00 = _hash01(torch, i0, j0, salt)
+    v10 = _hash01(torch, i0 + 1, j0, salt)
+    v01 = _hash01(torch, i0, j0 + 1, salt)
+    v11 = _hash01(torch, i0 + 1, j0 + 1, salt)
+    return (v00 * (1 - fa) * (1 - fb) + v10 * fa * (1 - fb)
+            + v01 * (1 - fa) * fb + v11 * fa * fb)
+
+
+def render_view(torch, K, R, C, H, W, texel, seed, device):
+    """(H, W) uint8 view of the scene from a camera with intrinsics K,
+    rotation R (world -> camera) and centre C, point-sampled: textures of
+    value noise at lattice pitches texel x (1, 3, 9, 27) metres."""
+    dt = torch.float64
+    Kt = torch.as_tensor(K, dtype=dt, device=device)
+    Rt = torch.as_tensor(R, dtype=dt, device=device)
+    v, u = torch.meshgrid(torch.arange(H, dtype=dt, device=device),
+                          torch.arange(W, dtype=dt, device=device), indexing="ij")
+    pix = torch.stack([u, v, torch.ones_like(u)], dim=-1)
+    dirs = pix @ torch.linalg.inv(Kt).T @ Rt          # camera rays in the world frame
+    _, idx, ab = scene_hit(torch, C, dirs)
+    img = torch.zeros((H, W), dtype=torch.float32, device=device)
+    for level, weight in enumerate((0.35, 0.3, 0.2, 0.15)):
+        pitch = texel * 3.0 ** level
+        img += weight * _value_noise(torch, ab[..., 0] / pitch, ab[..., 1] / pitch,
+                                     idx + 16 * level + 64 * seed)
+    return torch.round(255.0 * (0.1 + 0.8 * img)).clamp(0, 255).to(torch.uint8)
+
+
+def render_pair(torch, K, R, T, H, W, seed=0, device="cpu"):
+    """Left and right (H, W) uint8 views of the scene for the rig x2 = R x1 + T
+    (camera 1 at the origin), texel about 1.5 px at 3 m."""
+    K = np.asarray(K, np.float64)
+    texel = 1.5 * 3.0 / K[0, 0]
+    C2 = -np.asarray(R, np.float64).T @ np.asarray(T, np.float64).reshape(3)
+    left = render_view(torch, K, np.eye(3), np.zeros(3), H, W, texel, seed, device)
+    right = render_view(torch, K, R, C2, H, W, texel, seed, device)
+    return left, right
+
+
+def rotation_about(axis, degrees):
+    """Rotation matrix of `degrees` about the unit direction of `axis`."""
+    a = np.asarray(axis, np.float64)
+    a = a / np.linalg.norm(a)
+    th = np.deg2rad(degrees)
+    Kx = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+    return np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx
+
+
+def same_features(torch, fh, fc):
+    """Features of one image on the CPU (fh) and on the card (fc): (share of
+    the CPU's keypoints with a card keypoint within 0.01 px, the largest L2
+    distance between the descriptors of those pairs, CPU and card keypoint
+    counts)."""
+    vh, vc = fh.scores > 0, fc.scores.cpu() > 0
+    kc, dc = fc.keypoints.cpu()[vc].double(), fc.descriptors.cpu()[vc]
+    near, j = torch.cdist(fh.keypoints[vh].double(), kc).min(dim=1)
+    close = near < 0.01
+    l2 = (fh.descriptors[vh][close] - dc[j][close]).norm(dim=-1)
+    return (float(close.double().mean().item()), float(l2.max().item()) if l2.numel() else 0.0,
+            int(vh.sum().item()), int(vc.sum().item()))
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -321,7 +448,9 @@ def main() -> int:
     try:
         from stereo_reconstruction_cv_tpu_torch import _build
         from stereo_reconstruction_cv_tpu_torch.ops import disparity as DP
+        from stereo_reconstruction_cv_tpu_torch.ops import features as FT
         from stereo_reconstruction_cv_tpu_torch.ops import geometry as G
+        from stereo_reconstruction_cv_tpu_torch.ops import matching as MT
         from stereo_reconstruction_cv_tpu_torch.ops import rectify as RC
         from stereo_reconstruction_cv_tpu_torch.ops.cuda import cost as CK
         from stereo_reconstruction_cv_tpu_torch.ops.cuda import lr as LK
@@ -1122,6 +1251,123 @@ def main() -> int:
             f"over {int(fin.sum().item())} finite coordinates")
         if rel > F32_RTOL:
             raise AssertionError(f"4K reproject_image_to_3d: relative error {rel} > {F32_RTOL}")
+
+    # ------------------------------------------------------- 7. sparse 4K
+    @phase("7 sparse path 4K")
+    def _():
+        R_true = rotation_about(SCENE_AXIS, SCENE_DEG)
+        T_true = np.array(SCENE_T)
+        base = float(np.linalg.norm(T_true))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        left, right = render_pair(torch, K_4K, R_true, T_true, H4, W4, seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        log(f"[sparse] rendered the {W4}x{H4} scene pair on the card in {time.perf_counter() - t0:.2f} s; "
+            f"R {SCENE_DEG} deg about {SCENE_AXIS}, T {SCENE_T} m")
+        pair = (left, right)
+
+        def timed(label, fn, n=4):
+            """fn() n times, synchronised: (last result, walls); logs the first
+            run apart from the median of the warm ones."""
+            walls, out = [], None
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            log(f"[sparse] {label}: first {walls[0]:.4f} s, warm {[round(w, 4) for w in walls[1:]]} "
+                f"(median {statistics.median(walls[1:]):.4f} s)")
+            return out, walls
+
+        # estimate_geometry with its stages apart (the hook synchronises).
+        stage_runs = []
+
+        def geometry():
+            names, stamps = [], [time.perf_counter()]
+
+            def mark(name):
+                torch.cuda.synchronize()
+                names.append(name)
+                stamps.append(time.perf_counter())
+            g = stages.estimate_geometry(pair, base, K_4K, device="cuda", on_stage=mark)
+            stage_runs.append({n: b - a for n, a, b in zip(names, stamps, stamps[1:])})
+            return g
+
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        geo, walls = timed("estimate_geometry", geometry)
+        peak = torch.cuda.max_memory_allocated() - mem0
+        warm = {k: statistics.median(r[k] for r in stage_runs[1:]) for k in stage_runs[0]}
+        log("[sparse] estimate_geometry stages (s): first " + json.dumps(stage_runs[0])
+            + ", warm median " + json.dumps(warm))
+        log(f"[sparse] estimate_geometry peak device memory {peak / 2**30:.3f} GiB above "
+            f"{mem0 / 2**30:.3f} GiB held")
+        profile_idle(torch, "4K estimate_geometry", lambda: stages.estimate_geometry(pair, base, K_4K, device="cuda"))
+        R, t = geo["Rotation Matrix"], geo["Translation Vector"].ravel()
+        r_err = float(np.degrees(np.arccos(np.clip((np.trace(R @ R_true.T) - 1) / 2, -1, 1))))
+        t_err = float(np.degrees(np.arccos(np.clip(t @ T_true / base, -1, 1))))
+        log(f"[sparse] matches {geo['num_matches']}, F inliers {geo['num_inliers_F']}, "
+            f"E inliers {geo['num_inliers_E']}; R error {r_err:.4f} deg, t direction error {t_err:.4f} deg")
+        if not (r_err < 0.1 and t_err < 2.0):
+            raise AssertionError(f"(a) pose off the truth: R {r_err} deg, t {t_err} deg")
+
+        rect, _ = timed("rectify_pair (with its verification re-match)", lambda: stages.rectify_pair(
+            pair, base, K_4K, with_visualizations=False, device="cuda"))
+        slope = rect["epiline_mean_abs_slope"]
+        log(f"[sparse] epiline mean |slope| after rectification {slope:.6f}")
+        if not slope < 0.02:
+            raise AssertionError(f"(b) epiline mean |slope| {slope} >= 0.02")
+        tri, _ = timed("triangulate_sparse", lambda: stages.triangulate_sparse(pair, K_4K, base, device="cuda"))
+        log(f"[sparse] triangulated {tri['num_points']} points")
+
+        # The reconstruct chain from that rectification, as the CLI runs it.
+        rl, rr, Q = rect["left_rectified"], rect["right_rectified"], rect["Q"]
+        with tempfile.TemporaryDirectory() as td:
+            out = os.path.join(td, "cloud_raw_4k.ply")
+
+            def to_ply():
+                dmap = stages.disparity(rl, rr, ndisp=D4, device="cuda")
+                pts = stages.reconstruct(dmap, Q, device="cuda")
+                return dmap, pts, stages.export_point_cloud(out, pts, dmap, device="cuda")
+
+            with main_path("4K raw pair -> PLY through geometry (host speckle)", dense, speckle):
+                to_ply()
+            got = {k: v for k, v in {**CK.launches, **SK.launches, **LK.launches, **SPK.launches}.items() if v}
+            want = {"cost_volume": 1, "sgm_path_sweep": 4, "sgm_sweep_wta": 1, "lr_check": 1}
+            if got != want:
+                raise AssertionError(f"(d) launches {got} on the raw pair's dense chain, expected {want}")
+            (dmap, pts, n), _ = timed("rectified pair -> PLY (ndisp 256, host speckle)", to_ply)
+            n_file = check_ply(out)
+        valid = (dmap > 0) & torch.isfinite(pts).all(-1)
+        X = pts[valid].double() @ torch.as_tensor(rect["R1"], device=dev)  # R1^T, row-wise
+        t_hit, _, _ = scene_hit(torch, (0.0, 0.0, 0.0), X)
+        z_true = t_hit * X[:, 2]
+        good = float((((X[:, 2] - z_true).abs() / z_true) < 0.02).double().mean().item())
+        log(f"[sparse] dense points {n} (file {n_file}); share within 2% of the true depth {good:.4f}")
+        if n != n_file or good < 0.9:
+            raise AssertionError(f"(c) {good:.4f} of the dense points within 2% of the true depth (< 0.9)")
+
+        # (e) SIFT and descriptors on the card against the port on the CPU,
+        # on the frame the geometry path detects on; (f) distances vs float64.
+        img = stages._downscale(left, 2)
+        fc = FT.detect_and_describe(img, 4096)
+        fh = FT.detect_and_describe(img.cpu(), 4096)
+        share, desc_err, n_cpu, n_card = same_features(torch, fh, fc)
+        log(f"[sparse] (e) {n_cpu} CPU keypoints, {n_card} on the card: {share:.5f} have a card "
+            f"keypoint within 0.01 px; their descriptors differ by at most {desc_err:.3e} in L2")
+        if share < 0.99 or desc_err > 1e-4:
+            raise AssertionError(f"(e) card vs CPU: keypoint share {share}, descriptor L2 {desc_err}")
+        d32 = MT.squared_distance_matrix(fc.descriptors, fc.descriptors.flip(0))
+        a, b = fc.descriptors.double(), fc.descriptors.flip(0).double()
+        d64 = (a * a).sum(-1)[:, None] + (b * b).sum(-1)[None] - 2.0 * a @ b.T
+        # Relative to the largest distance: TF32 (a 10-bit mantissa) would show
+        # as ~1e-3, float32 as ~1e-6.
+        rel = float(((d32.double() - d64).abs().max() / d64.abs().max()).item())
+        log(f"[sparse] (f) squared_distance_matrix {tuple(d32.shape)} vs float64: max error over the largest distance {rel:.3e}")
+        if rel > 1e-4:
+            raise AssertionError(f"(f) squared_distance_matrix relative error {rel} > 1e-4")
 
     if failures:
         log(f"FAILED phases: {failures}")

@@ -1,10 +1,11 @@
 """Carry the reference's state across to the port.
 
-The dense path has no learned weights; its state is the ``SGBMConfig`` and
-the rig geometry. This module converts both:
+The port's paths have no learned weights; their state is the configuration
+and the rig geometry. This module converts both:
 
-- ``sgbm_config``: the reference's ``SGBMConfig`` (or any object with its
-  fields) into the port's own ``config.SGBMConfig``, field by field;
+- ``sgbm_config`` and ``pipeline_config``: the reference's ``SGBMConfig`` or
+  ``PipelineConfig`` (or any object with their fields) into the port's own
+  classes of ``config``, field by field, nested classes included;
 - ``from_reference_rectification``: the reference's ``RectifyResult`` (arrays
   converted with ``np.asarray``) or the ``rectification.npz`` its ``rectify``
   verb writes (key ``Q``; ``R1, R2, P1, P2`` where present) into the port's
@@ -19,7 +20,7 @@ import os
 import numpy as np
 import torch
 
-from stereo_reconstruction_cv_tpu_torch.config import SGBMConfig
+from stereo_reconstruction_cv_tpu_torch import config as C
 from stereo_reconstruction_cv_tpu_torch.ops.rectify import RectifyResult
 
 _FIELDS = ("R1", "R2", "P1", "P2", "Q")
@@ -53,8 +54,25 @@ def from_reference_rectification(obj, device="cpu") -> RectifyResult:
     return RectifyResult(**out)
 
 
-def sgbm_config(ref_cfg) -> SGBMConfig:
+# The nested configuration fields and the port's class of each.
+_NESTED = {"calibration": C.CalibrationConfig, "chessboard": C.ChessboardConfig,
+           "match": C.MatchConfig, "robust": C.RobustConfig, "rectify": C.RectifyConfig,
+           "sgbm": C.SGBMConfig}
+
+
+def _carry(cls, src):
+    """An instance of the port's `cls` with every field read from `src`."""
+    return cls(**{f.name: _carry(_NESTED[f.name], getattr(src, f.name)) if f.name in _NESTED
+                  else getattr(src, f.name) for f in dataclasses.fields(cls)})
+
+
+def sgbm_config(ref_cfg) -> C.SGBMConfig:
     """The reference's SGBMConfig -> the port's, field by field (every
     field of the port's class must be present on `ref_cfg`)."""
-    return SGBMConfig(**{f.name: getattr(ref_cfg, f.name)
-                         for f in dataclasses.fields(SGBMConfig)})
+    return _carry(C.SGBMConfig, ref_cfg)
+
+
+def pipeline_config(ref_cfg) -> C.PipelineConfig:
+    """The reference's PipelineConfig -> the port's, field by field through
+    every nested configuration."""
+    return _carry(C.PipelineConfig, ref_cfg)

@@ -1,9 +1,12 @@
-"""Camera geometry on tensors: the functions the dense path needs.
+"""Camera geometry on tensors.
 
 Ports of ``stereo_reconstruction_cv_tpu/ops/geometry.py`` (cv2.Rodrigues,
-distortion, cv2.reprojectImageTo3D parity). Conventions follow OpenCV: points
-are (x, y) = (col, row); distortion is (k1, k2, p1, p2, k3). Every function
-keeps the dtype and device of its inputs.
+distortion, cv2.projectPoints, cv2.computeCorrespondEpilines, epipolar and
+Sampson errors, cv2.triangulatePoints and cv2.reprojectImageTo3D parity).
+Conventions follow OpenCV: points are (x, y) = (col, row); distortion is
+(k1, k2, p1, p2, k3). Every function keeps the dtype and device of its
+inputs; the epipolar errors also take a batch of matrices (M, 3, 3) and then
+return (M, N).
 """
 
 from __future__ import annotations
@@ -14,6 +17,15 @@ import torch
 def to_homogeneous(pts: torch.Tensor) -> torch.Tensor:
     """(..., D) -> (..., D+1) with a trailing 1."""
     return torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
+
+
+def from_homogeneous(pts: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    """(..., D+1) -> (..., D), dividing by the last coordinate; |w| < eps is
+    pushed out to eps with w's sign (+eps at 0)."""
+    w = pts[..., -1:]
+    if eps:
+        w = torch.where(w.abs() < eps, torch.sign(w) * eps + (w == 0).to(w.dtype) * eps, w)
+    return pts[..., :-1] / w
 
 
 def rodrigues_to_matrix(rvec: torch.Tensor) -> torch.Tensor:
@@ -90,6 +102,66 @@ def undistort_normalized(xy_dist: torch.Tensor, dist: torch.Tensor,
     for _ in range(num_iters):
         xy = xy - (distort_normalized(xy, dist) - xy_dist)
     return xy
+
+
+def project_points(object_points: torch.Tensor, rvec: torch.Tensor, tvec: torch.Tensor,
+                   K: torch.Tensor, dist: torch.Tensor | None = None) -> torch.Tensor:
+    """3D points (N, 3) -> pixels (N, 2) (cv2.projectPoints)."""
+    R = rodrigues_to_matrix(rvec)
+    cam = object_points @ R.T + tvec.reshape(1, 3)
+    xy = cam[..., :2] / cam[..., 2:3]
+    if dist is not None:
+        xy = distort_normalized(xy, dist)
+    u = K[0, 0] * xy[..., 0] + K[0, 1] * xy[..., 1] + K[0, 2]
+    v = K[1, 1] * xy[..., 1] + K[1, 2]
+    return torch.stack([u, v], dim=-1)
+
+
+def compute_epilines(pts: torch.Tensor, F: torch.Tensor, which_image: int) -> torch.Tensor:
+    """Epipolar lines (a, b, c), a^2 + b^2 = 1, of points (N, 2)
+    (cv2.computeCorrespondEpilines): which_image 1 gives lines in image 2
+    (l = F x), 2 gives lines in image 1 (l = F^T x)."""
+    lines = to_homogeneous(pts) @ (F.transpose(-1, -2) if which_image == 1 else F)
+    nrm = torch.sqrt(lines[..., 0] ** 2 + lines[..., 1] ** 2)
+    nrm = torch.where(nrm == 0, torch.ones_like(nrm), nrm)
+    return lines / nrm[..., None]
+
+
+def epipolar_distance(F: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor) -> torch.Tensor:
+    """Symmetric point-to-epiline distance of each correspondence (N,)."""
+    x1, x2 = to_homogeneous(pts1), to_homogeneous(pts2)
+    l2 = x1 @ F.transpose(-1, -2)
+    l1 = x2 @ F
+    num = (x2 * l2).sum(-1).abs()
+    d2 = num / torch.sqrt(l2[..., 0] ** 2 + l2[..., 1] ** 2 + 1e-30)
+    d1 = num / torch.sqrt(l1[..., 0] ** 2 + l1[..., 1] ** 2 + 1e-30)
+    return 0.5 * (d1 + d2)
+
+
+def sampson_error(F: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor) -> torch.Tensor:
+    """First-order geometric (Sampson) error of each correspondence (N,)."""
+    x1, x2 = to_homogeneous(pts1), to_homogeneous(pts2)
+    Fx1 = x1 @ F.transpose(-1, -2)
+    Ftx2 = x2 @ F
+    num = (x2 * Fx1).sum(-1) ** 2
+    den = Fx1[..., 0] ** 2 + Fx1[..., 1] ** 2 + Ftx2[..., 0] ** 2 + Ftx2[..., 1] ** 2
+    return num / (den + 1e-30)
+
+
+def triangulate_points(P1: torch.Tensor, P2: torch.Tensor, pts1: torch.Tensor,
+                       pts2: torch.Tensor) -> torch.Tensor:
+    """DLT triangulation (cv2.triangulatePoints up to each point's scale):
+    P1, P2 (3, 4), pts (N, 2) -> unit homogeneous points (N, 4), each the
+    right singular vector of its 4x4 system's smallest singular value."""
+    A = torch.stack([pts1[:, :1] * P1[2] - P1[0], pts1[:, 1:] * P1[2] - P1[1],
+                     pts2[:, :1] * P2[2] - P2[0], pts2[:, 1:] * P2[2] - P2[1]], dim=1)
+    return torch.linalg.svd(A).Vh[:, -1, :]
+
+
+def triangulate_to_3d(P1: torch.Tensor, P2: torch.Tensor, pts1: torch.Tensor,
+                      pts2: torch.Tensor) -> torch.Tensor:
+    """Triangulate and dehomogenise -> (N, 3)."""
+    return from_homogeneous(triangulate_points(P1, P2, pts1, pts2), eps=1e-30)
 
 
 def reproject_image_to_3d(disparity: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:

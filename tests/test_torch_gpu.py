@@ -12,21 +12,33 @@ unaligned volumes), with stress maps for the keep-mask kernels (every
 scatter on one address, rows past 48 KB of shared memory, one component
 over a 4K frame, a component per pixel) and the torch ops of rectification
 and reprojection held to the same calls on the CPU; chip_smoke.py checks
-the full-size shapes of the main path.
+the full-size shapes of the main path. The sparse path (torch ops, no
+kernel of its own) is held to the port's CPU run: SIFT keypoints and
+descriptors, the distance matrix, the robust fits given the same samples,
+and the pose of a rendered scene; the robust fits index no CUDA tensor with
+a boolean mask (a host sync).
 """
+
+import importlib.util
+import pathlib
 
 import numpy as np
 import pytest
 import torch
 
 from stereo_reconstruction_cv_tpu_torch import native
+from stereo_reconstruction_cv_tpu_torch.ops import epipolar as EP
+from stereo_reconstruction_cv_tpu_torch.ops import features as FT
 from stereo_reconstruction_cv_tpu_torch.ops import geometry as G
+from stereo_reconstruction_cv_tpu_torch.ops import matching as MT
 from stereo_reconstruction_cv_tpu_torch.ops import rectify as RC
+from stereo_reconstruction_cv_tpu_torch.ops import robust as RB
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import cost as CK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import lr as LK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import op_chain as OC
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import sgm as SK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import speckle as SPK
+from stereo_reconstruction_cv_tpu_torch.pipeline import stages
 from stereo_reconstruction_cv_tpu_torch.tools import micro_i16
 
 pytestmark = pytest.mark.gpu
@@ -723,3 +735,128 @@ def test_op_chain_wrap_edge_equals_plain(dev, dtype, W, H):
         if dtype == torch.uint16:
             got, ref = got.view(torch.int16), ref.view(torch.int16)
         assert torch.equal(got, ref), ops
+
+
+# ---------------------------------------------------------------------------
+# The sparse path on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _smoke():
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+SCENE_K = np.array([[200.0, 0.0, 160.0], [0.0, 200.0, 120.0], [0.0, 0.0, 1.0]])
+SCENE_T = np.array([-0.3, 0.02, 0.01])
+
+
+def _scene(dev, H=240, W=320):
+    smoke = _smoke()
+    K = SCENE_K.copy()
+    K[:2] *= W / 320.0
+    R = smoke.rotation_about((0.2, 1.0, 0.1), 2.0)
+    left, right = smoke.render_pair(torch, K, R, SCENE_T, H, W, seed=2, device=dev)
+    return K, R, left, right
+
+
+@pytest.mark.parametrize("H,W", [(240, 320), (450, 700)])
+def test_sift_and_descriptors_on_the_card_match_the_cpu(dev, H, W):
+    _, _, left, _ = _scene(dev, H, W)
+    fc = FT.detect_and_describe(left, 1024)
+    fh = FT.detect_and_describe(left.cpu(), 1024)
+    share, desc_err, n_cpu, _ = _smoke().same_features(torch, fh, fc)
+    assert n_cpu > 200 and share >= 0.99 and desc_err <= 1e-4
+    d32 = MT.squared_distance_matrix(fc.descriptors, fc.descriptors.flip(0))
+    a, b = fc.descriptors.double(), fc.descriptors.flip(0).double()
+    d64 = (a * a).sum(-1)[:, None] + (b * b).sum(-1)[None] - 2.0 * a @ b.T
+    assert float((d32.double() - d64).abs().max() / d64.abs().max()) <= 1e-4
+
+
+def _robust_inputs():
+    """200 correspondences of a two-view scene, 0.3 px noise, 30% outliers,
+    20 padded slots invalid, as float64 CPU tensors; and the scene's K."""
+    rng = np.random.default_rng(9)
+    K = np.array([[820.0, 0.0, 330.0], [0.0, 810.0, 245.0], [0.0, 0.0, 1.0]])
+    X = np.stack([rng.uniform(-2, 2, 220), rng.uniform(-1.5, 1.5, 220), rng.uniform(3, 8, 220)], -1)
+    R = _smoke().rotation_about((0.1, 1.0, -0.2), 5.0)
+    t = np.array([-1.0, 0.1, 0.05])
+
+    def proj(P):
+        x = P @ K.T
+        return x[:, :2] / x[:, 2:] + rng.normal(scale=0.3, size=(len(P), 2))
+
+    p1, p2 = proj(X), proj(X @ R.T + t)
+    bad = rng.random(220) < 0.3
+    p2[bad] = rng.uniform([0, 0], [660, 490], (int(bad.sum()), 2))
+    mask = np.ones(220, bool)
+    mask[200:] = False
+    return [torch.from_numpy(a) for a in (p1, p2, mask, K)]
+
+
+def test_robust_fits_on_the_card_equal_the_cpu(dev, monkeypatch):
+    """The same samples: the same LMedS F and 5-point RANSAC E (float64)."""
+    p1, p2, mask, K = _robust_inputs()
+    draws = {}
+
+    def same_draws(generator, num_points, mask_, num_hypotheses, k):
+        key = (num_hypotheses, k)
+        if key not in draws:
+            g = torch.Generator().manual_seed(num_hypotheses + k)
+            draws[key] = draw(g, num_points, mask_.cpu(), num_hypotheses, k)
+        return draws[key].to(mask_.device)
+
+    draw = RB.sample_indices
+    monkeypatch.setattr(RB, "sample_indices", same_draws)
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        args = [x.to(d) for x in (p1, p2, mask)]
+        f = RB.find_fundamental(None, *args, num_hypotheses=256)
+        e = RB.find_essential(None, args[0], args[1], K.to(d), mask=f.inlier_mask, num_hypotheses=512)
+        out[d.type] = [x.cpu() for x in (f.model, f.inlier_mask, e.model, e.inlier_mask)]
+    torch.cuda.synchronize()
+    (fh, mh, eh, meh), (fc, mc, ec, mec) = out["cpu"], out["cuda"]
+
+    def unit(M):
+        M = M / M.norm()
+        return M * torch.sign(M.flatten()[M.abs().argmax()])
+
+    assert torch.equal(mh, mc) and torch.equal(meh, mec) and int(mec.sum()) > 120
+    assert float((unit(fc) - unit(fh)).abs().max()) <= 1e-10
+    assert float((unit(ec) - unit(eh)).abs().max()) <= 1e-10
+
+
+def test_robust_fit_indexes_no_cuda_tensor_by_a_mask(dev, monkeypatch):
+    """Boolean-mask indexing waits for the host (its shape is data-
+    dependent); the robust fits use where/argmax/gather instead."""
+    p1, p2, mask, K = (x.to(dev) for x in _robust_inputs())
+    seen = []
+    getitem = torch.Tensor.__getitem__
+
+    def spy(self, idx):
+        items = idx if isinstance(idx, tuple) else (idx,)
+        if self.is_cuda and any(isinstance(i, torch.Tensor) and i.dtype == torch.bool for i in items):
+            seen.append(tuple(self.shape))
+        return getitem(self, idx)
+
+    monkeypatch.setattr(torch.Tensor, "__getitem__", spy)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    f = RB.find_fundamental(gen, p1, p2, mask, num_hypotheses=256)
+    e = RB.find_essential(gen, p1, p2, K, mask=f.inlier_mask, num_hypotheses=512)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert not seen, seen
+    assert int(e.num_inliers) > 120
+
+
+def test_estimate_geometry_on_the_card_finds_the_rig(dev):
+    K, R, left, right = _scene(dev)
+    g = stages.estimate_geometry((left, right), 0.3, K, device="cuda")
+    Rg, t = g["Rotation Matrix"], g["Translation Vector"].ravel()
+    assert np.degrees(np.arccos(np.clip((np.trace(Rg @ R.T) - 1) / 2, -1, 1))) < 0.1
+    assert np.degrees(np.arccos(t @ SCENE_T / np.linalg.norm(SCENE_T))) < 2
+    assert g["num_inliers_E"] > 0.5 * g["num_matches"] > 100
+    n1 = EP.pixel_to_normalized(torch.from_numpy(g["pts1"]), torch.from_numpy(K))
+    assert n1.dtype == torch.float64

@@ -10,6 +10,7 @@ importing the port pulls in neither jax nor PIL.
 
 import ast
 import dataclasses
+import importlib.util
 import os
 import pathlib
 import subprocess
@@ -21,6 +22,7 @@ import pytest
 import torch
 from PIL import Image
 
+from stereo_reconstruction_cv_tpu import config as ref_config
 from stereo_reconstruction_cv_tpu import native as ref_native
 from stereo_reconstruction_cv_tpu.config import SGBMConfig
 from stereo_reconstruction_cv_tpu.io import ply as PLY
@@ -167,7 +169,7 @@ def test_convert_round_trip(tmp_path):
         convert.from_reference_rectification({"R1": np.eye(3)})
 
 
-def test_cli_reconstruct_on_cpu(tmp_path, capsys):
+def test_cli_reconstruct_on_cpu(tmp_path):
     left, right = _pair(5)
     pair = tmp_path / "pair"
     pair.mkdir()
@@ -186,8 +188,6 @@ def test_cli_reconstruct_on_cpu(tmp_path, capsys):
     imL, imR = load_stereo_pair(str(pair))
     d = stages.disparity(imL, imR, ndisp=16, device="cpu")
     assert len(pts) == int((d > 0).sum()) > 0 and colors is not None
-    assert cli.main(["reconstruct", str(pair), "--device", "cpu"]) == 2
-    assert "--rectification" in capsys.readouterr().err
     assert cli.main(["disparity", str(pair), "--ndisp", "16", "--device", "cpu",
                      "--outdir", str(tmp_path / "d")]) == 0
     np.testing.assert_array_equal(np.load(tmp_path / "d" / "disparity.npy"), d.numpy())
@@ -203,6 +203,9 @@ def test_port_imports_no_jax():
         "import stereo_reconstruction_cv_tpu_torch.convert, stereo_reconstruction_cv_tpu_torch.native\n"
         "import stereo_reconstruction_cv_tpu_torch.ops.disparity, stereo_reconstruction_cv_tpu_torch.ops.rectify\n"
         "import stereo_reconstruction_cv_tpu_torch.pipeline.stages\n"
+        "import stereo_reconstruction_cv_tpu_torch.ops.sift, stereo_reconstruction_cv_tpu_torch.ops.features\n"
+        "import stereo_reconstruction_cv_tpu_torch.ops.matching, stereo_reconstruction_cv_tpu_torch.ops.robust\n"
+        "import stereo_reconstruction_cv_tpu_torch.ops.epipolar, stereo_reconstruction_cv_tpu_torch.ops.fivepoint\n"
         "import stereo_reconstruction_cv_tpu_torch.ops.cuda.speckle\n"
         "import stereo_reconstruction_cv_tpu_torch.ops.cuda.op_chain\n"
         "import stereo_reconstruction_cv_tpu_torch.io.image, stereo_reconstruction_cv_tpu_torch.io.ply\n"
@@ -288,6 +291,27 @@ def test_port_sgbm_config_equals_the_reference_field_by_field():
     assert dataclasses.asdict(convert.sgbm_config(custom)) == dataclasses.asdict(custom)
     assert convert.sgbm_config(custom) == ours.with_(num_disparities=64, num_directions=8,
                                                      speckle_backend="exact", p2=1000)
+    # The whole pipeline tree, nested classes included.
+    ref_p, ours_p = ref_config.PipelineConfig(), port_config.PipelineConfig()
+
+    def names(cfg):
+        return [(f.name, names(getattr(cfg, f.name)) if dataclasses.is_dataclass(getattr(cfg, f.name))
+                 else None) for f in dataclasses.fields(cfg)]
+
+    assert names(ours_p) == names(ref_p)
+    assert dataclasses.asdict(ours_p) == dataclasses.asdict(ref_p)
+    assert convert.pipeline_config(ref_p) == ours_p == port_config.DEFAULT
+    custom_p = dataclasses.replace(
+        ref_p, image_size=(640, 480),
+        match=ref_config.MatchConfig(max_keypoints=1024, ratio_geometry=0.65),
+        robust=ref_config.RobustConfig(num_hypotheses=256, e_threshold_px=2.0),
+        rectify=ref_config.RectifyConfig(alpha=0.0),
+        calibration=ref_config.CalibrationConfig(chessboard=ref_config.ChessboardConfig(cols=8)),
+        sgbm=custom)
+    carried = convert.pipeline_config(custom_p)
+    assert dataclasses.asdict(carried) == dataclasses.asdict(custom_p)
+    assert isinstance(carried.calibration.chessboard, port_config.ChessboardConfig)
+    assert isinstance(carried.sgbm, port_config.SGBMConfig)
 
 
 def test_port_ply_writer_bytes_equal_the_reference(tmp_path):
@@ -304,3 +328,155 @@ def test_port_ply_writer_bytes_equal_the_reference(tmp_path):
             assert (c_port is None) == (c_ref is None)
             if c_ref is not None:
                 np.testing.assert_array_equal(c_port, c_ref)
+
+
+# ---------------------------------------------------------------------------
+# The sparse verbs on a raw pair (the ray-cast scene of chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+RAW_K = np.array([[200.0, 0.0, 160.0], [0.0, 200.0, 120.0], [0.0, 0.0, 1.0]])
+RAW_T = np.array([-0.3, 0.02, 0.01])
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.fixture()
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def raw_pair(tmp_path_factory):
+    """A raw 240x320 pair folder (planes at 2.5-5 m, a 2 degree rotation,
+    T = (-0.3, 0.02, 0.01) m; JPEG-compressed) and a calibration .npz."""
+    smoke = _smoke()
+    R = smoke.rotation_about((0.2, 1.0, 0.1), 2.0)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        left, right = smoke.render_pair(torch, RAW_K, R, RAW_T, 240, 320, seed=1)
+    finally:
+        torch.set_num_threads(n)
+    folder = tmp_path_factory.mktemp("raw") / "pair"
+    folder.mkdir()
+    Image.fromarray(left.numpy()).convert("RGB").save(folder / "img1.jpg", quality=95)
+    Image.fromarray(right.numpy()).convert("RGB").save(folder / "img2.jpg", quality=95)
+    calib = folder.parent / "calibration.npz"
+    np.savez(calib, K=RAW_K, dist=np.zeros(5))
+    return str(folder), str(calib), R
+
+
+def _rotation_error_deg(Ra, Rb):
+    return np.degrees(np.arccos(np.clip((np.trace(Ra @ Rb.T) - 1) / 2, -1, 1)))
+
+
+def test_cli_match_on_a_raw_pair(raw_pair, tmp_path, capsys, one_thread):
+    folder, _, _ = raw_pair
+    out = tmp_path / "matches.npz"
+    assert cli.main(["match", folder, "--device", "cpu", "--save", str(out)]) == 0
+    assert "good matches (ratio 0.75)" in capsys.readouterr().out
+    with np.load(out) as z:
+        assert z["keypoints1"].shape == (2048, 2) and z["descriptors1"].shape == (2048, 128)
+        assert int(z["match_mask"].sum()) > 100
+    vis = stages.detect_match(folder, with_visualizations=True, device="cpu")
+    assert vis["Left Keypoints"].shape == (360, 640, 3) and vis["Good Matches"].shape == (360, 1280, 3)
+
+
+def test_cli_geometry_with_a_calibration_file(raw_pair, capsys, one_thread):
+    folder, calib, R = raw_pair
+    assert cli.main(["geometry", folder, "--calibration", calib, "--device", "cpu"]) == 0
+    text = capsys.readouterr().out
+    assert "Rotation Matrix" in text and "E inliers" in text
+    g = stages.estimate_geometry(folder, camera_matrix=RAW_K, device="cpu")
+    assert _rotation_error_deg(g["Rotation Matrix"], R) < 0.1
+    t = g["Translation Vector"].ravel()
+    assert np.degrees(np.arccos(t @ RAW_T / np.linalg.norm(RAW_T))) < 2
+    assert g["num_inliers_E"] > 0.5 * g["num_matches"] > 100
+
+
+def test_cli_rectify_writes_its_files(raw_pair, tmp_path, capsys, one_thread):
+    folder, calib, _ = raw_pair
+    outdir = tmp_path / "rect"
+    argv = ["rectify", folder, "--calibration", calib, "--undistort", "--baseline", "0.3",
+            "--device", "cpu", "--outdir", str(outdir)]
+    assert cli.main(argv) == 0
+    slope = float(capsys.readouterr().out.split("after rectification:")[1].split()[0])
+    assert slope < 0.02
+    names = ("left_rectified.jpg", "right_rectified.jpg", "left_epilines_before.png",
+             "right_points_before.png", "left_epilines_after.png", "right_points_after.png")
+    assert all((outdir / n).exists() for n in names)
+    with np.load(outdir / "rectification.npz") as z:
+        assert z["Q"].shape == (4, 4) and z["P2"].shape == (3, 4)
+        assert abs(1 / z["Q"][3, 2]) == pytest.approx(0.3, rel=1e-9)
+
+
+def test_cli_triangulate_writes_a_sparse_cloud(raw_pair, tmp_path, one_thread):
+    folder, calib, _ = raw_pair
+    out = tmp_path / "sparse.ply"
+    argv = ["triangulate", folder, "--calibration", calib, "--baseline",
+            str(np.linalg.norm(RAW_T)), "--device", "cpu", "--output", str(out)]
+    assert cli.main(argv) == 0
+    pts, _ = PLY.read_ply(str(out))
+    assert len(pts) > 100 and np.isfinite(pts).all()
+    assert 2.4 < np.median(pts[:, 2]) < 5.1
+
+
+def test_cli_reconstruct_from_a_raw_pair(raw_pair, tmp_path, one_thread):
+    """No --rectification: geometry, rectification, SGBM, reprojection, PLY."""
+    folder, calib, _ = raw_pair
+    out = tmp_path / "dense.ply"
+    argv = ["reconstruct", folder, "--calibration", calib, "--baseline",
+            str(np.linalg.norm(RAW_T)), "--ndisp", "32", "--device", "cpu", "--output", str(out)]
+    assert cli.main(argv) == 0
+    pts, colors = PLY.read_ply(str(out))
+    assert len(pts) > 0.3 * 240 * (320 - 32) and colors is not None
+    assert 2.4 < np.median(pts[:, 2]) < 5.1
+
+
+def test_unported_options_are_refused_with_their_queue_item(raw_pair, tmp_path, capsys):
+    folder, _, _ = raw_pair
+    for argv, item in ((["match", folder, "--learned"], "A.13"),
+                       (["geometry", folder, "--learned"], "A.13"),
+                       (["geometry", folder, "--cache"], "A.15"),
+                       (["rectify", folder, "--cache", str(tmp_path)], "A.15"),
+                       (["triangulate", folder, "--viewer", "v.html"], "A.15"),
+                       (["reconstruct", folder, "--viewer", "v.html"], "A.15"),
+                       (["--metrics", "m.json", "match", folder], "A.15")):
+        assert cli.main(argv + ["--device", "cpu"]) == 2, argv
+        assert item in capsys.readouterr().err, argv
+    with pytest.raises(NotImplementedError, match="A.13"):
+        stages.estimate_geometry(folder, method="learned", device="cpu")
+    with pytest.raises(NotImplementedError, match="A.13"):
+        stages.detect_match(folder, method="learned", device="cpu")
+    with pytest.raises(NotImplementedError, match="A.15"):
+        stages.rectify_pair(folder, cache=str(tmp_path), device="cpu")
+
+
+def test_cli_reference_range_fallbacks(capsys):
+    import argparse
+
+    args = argparse.Namespace(baseline=-1.0, contrast_threshold=0.5)
+    cli._validate_reference_ranges(args)
+    assert args.baseline == 0.1 and args.contrast_threshold == 0.04
+    err = capsys.readouterr().err
+    assert "Invalid baseline value" in err and "Invalid contrast threshold" in err
+    args = argparse.Namespace(baseline=0.14, contrast_threshold=0.02)
+    cli._validate_reference_ranges(args)
+    assert args.baseline == 0.14 and args.contrast_threshold == 0.02
+
+
+def test_probe_sparse_needs_a_card(capsys):
+    from stereo_reconstruction_cv_tpu_torch.tools import probe_sparse
+
+    if torch.cuda.is_available():
+        pytest.skip("the probe runs on the card here")
+    assert probe_sparse.main() == 2
+    assert "no CUDA device" in capsys.readouterr().err
