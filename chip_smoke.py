@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's dense path once on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -68,11 +68,27 @@ Phases:
                the CPU (the remap within 1 LSB, the points bit-equal or
                within F32_RTOL); kernel times, each path-sweep direction
                alone
-Each main path of phases 4, 4b and 5 (config 2 with device, host and no
-speckle, the 720p CLI chain, the two tools, the 4K pair -> PLY, config 3's
-chain) runs with the launch counts zeroed just before it and read just after:
-every kernel it should run must have launched in it, and a path with the host
-speckle must launch no speckle kernel. The kernels line sums the paths'
+  7. sparse    a 4K raw pair ray-cast on the card (render_pair): SIFT
+               estimate_geometry (stages apart), rectify_pair,
+               triangulate_sparse, the rectified pair -> PLY; the pose against
+               the truth, the epilines, the dense depths, SIFT on the card
+               against the CPU, the distance matrix against float64
+  8. learned   the learned matcher under PyTorch's default cuDNN flags (the
+               net turns TF32 off itself), with the shipped weights
+               (learned_phase: (a)-(f)): the net, detection, the corner and
+               LK refinements on the card against the CPU or float64;
+               config 4's step (960x536, detect_pair -> match_learned ->
+               triangulate_points) timed whole and by stages, its depths
+               against the scene; learned estimate_geometry on phase 7's pair
+               timed by stages, its correspondences against the CPU's, and
+               its median pose over POSE_SEEDS seeds there and on the same
+               scene at 960x540 against the JAX reference's fits (REF_POSE)
+Each main path of phases 4, 4b, 5, 7 and 8 (config 2 with device, host and
+no speckle, the 720p CLI chain, the two tools, the 4K pair -> PLY, config
+3's chain, the raw pair's dense chain, config 4's step and learned geometry)
+runs with the launch counts zeroed just before it and read just after:
+every kernel it should run must have launched in it, a path with the host
+speckle must launch no speckle kernel, and the learned paths none. The kernels line sums the paths'
 counts; each kernel's bound there is the larger of its bytes over the card's
 memory rate and its operations over its peak rate (PEAK_BYTES_S,
 PEAK_OPS_S), at the inputs its time was taken on. To compare another
@@ -320,6 +336,14 @@ def rotation_about(axis, degrees):
     return np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx
 
 
+def pose_errors(R, t, R_true, T_true):
+    """(rotation error, translation direction error) of a pose, in degrees."""
+    r = np.degrees(np.arccos(np.clip((np.trace(R @ R_true.T) - 1) / 2, -1, 1)))
+    t = np.asarray(t, np.float64).ravel()
+    c = t @ T_true / (np.linalg.norm(t) * np.linalg.norm(T_true))
+    return float(r), float(np.degrees(np.arccos(np.clip(c, -1, 1))))
+
+
 def same_features(torch, fh, fc):
     """Features of one image on the CPU (fh) and on the card (fc): (share of
     the CPU's keypoints with a card keypoint within 0.01 px, the largest L2
@@ -434,6 +458,326 @@ def profile_idle(torch, label: str, fn) -> None:
         f"idle share {1.0 - busy / wall_us:.4f}")
     for name, (t, n) in sorted(items.items(), key=lambda kv: -kv[1][0])[:8]:
         log(f"    {t / 1e3:9.3f} ms  x{n:<4d} {name[:90]}")
+
+
+# Phase 8's rig, config 4's (benchmarks.py:91 _rectified_geometry): K_4K
+# scaled to the width, R = I, T = (-0.14, 0, 0); the net's working size (H, W
+# multiples of 8) and keypoints a frame; warm runs of config 4's step and of
+# learned geometry at 4K.
+C4_SIZE, C4_MAXK = (536, 960), 1024
+C4_WARM, GEO_WARM = 10, 3
+# Phase 8 (e)'s pose check. On this scene about half the learned matches lie
+# over 1.5 px from the true epipolar lines (LMedS's breakdown point), so the
+# pose of the robust fits depends on their seed, the JAX reference's as the
+# port's. The median over POSE_SEEDS seeds is held to the 80th percentile of
+# the reference's own fits over 40 seeds on the same matches (a median of 15
+# draws from that distribution exceeds it with probability 0.004 for each of
+# R and t), read with tools/learned_pose_reference.py on the matches that
+# stereo_reconstruction_cv_tpu_torch/tools/learned_pose.py --out saves; the
+# match count is held to the reference's within 2%. The share of seeds
+# within POSE_R_DEG and POSE_T_DEG, where the reference's seed 0 lies at
+# 960x540 (R 0.129, t 4.63 deg), is reported. The reference's match count
+# at 960x540 is its own run's; at 4K it is not known (the port's card is
+# held to its CPU run there, which the tests hold to the reference).
+POSE_SEEDS = 15
+POSE_R_DEG, POSE_T_DEG = 0.3, 5.0
+REF_POSE = {
+    "3840x2160": {"seeds": 40, "median_R": 0.9025, "median_t": 6.058,
+                  "bound_R": 1.1011, "bound_t": 7.8294},
+    "960x540": {"matches": 2397, "seeds": 40, "median_R": 0.2731, "median_t": 7.7867,
+                "bound_R": 0.4671, "bound_t": 13.9686},
+}
+
+
+def learned_phase(torch, dev, host, no_kernels, pair4k):
+    """Phase 8: the learned matcher's serving path on the card `dev`, held to
+    the same calls on `host` (the CPU) and to the rendered scene. (f) the
+    shipped weights file; (a) the B=2 forward; (b) detect_pair, with and
+    without the corner refinement, and twice on `dev`; (c)
+    corner_subpix_patch against its float64 run and refine_matches_lk
+    against `host`; (d) config 4's step (detect_pair -> match_learned ->
+    gather_correspondences -> triangulate_points -> masked sum), timed whole
+    and by stages, its depths against the scene; (e)
+    estimate_geometry(method="learned") on pair4k = (left, right, K, R, T),
+    timed by stages, its correspondences against `host`'s, and its pose
+    against the truth there and on the same scene at 960x540, beside the JAX
+    reference's. no_kernels(label) wraps each timed path: it must launch no
+    hand-written kernel. Raises AssertionError on a failed check."""
+    from stereo_reconstruction_cv_tpu_torch import config as PC
+    from stereo_reconstruction_cv_tpu_torch.calib.chessboard import corner_subpix_patch
+    from stereo_reconstruction_cv_tpu_torch.models import checkpoint as XCK
+    from stereo_reconstruction_cv_tpu_torch.models import xfeat as XF
+    from stereo_reconstruction_cv_tpu_torch.ops import geometry as G
+    from stereo_reconstruction_cv_tpu_torch.ops import matching as MT
+    from stereo_reconstruction_cv_tpu_torch.ops import rectify as RC
+    from stereo_reconstruction_cv_tpu_torch.ops.refine import refine_matches_lk
+    from stereo_reconstruction_cv_tpu_torch.pipeline import stages
+
+    sync = torch.cuda.synchronize
+
+    def peak_start():
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    def peak_text(mem0):
+        peak = torch.cuda.max_memory_allocated() - mem0
+        return f"peak device memory {peak / 2**30:.4f} GiB above {mem0 / 2**30:.4f} GiB held"
+
+    # (f) the weights: the file default_checkpoint() names, loaded strictly
+    path = XCK.default_checkpoint()
+    with np.load(path, allow_pickle=False) as z:
+        n_arrays, n_params = len(z.files), sum(z[k].size for k in z.files)
+    model, model_h = stages._xfeat_model(None, dev), stages._xfeat_model(None, host)
+    log(f"[learned] (f) {os.path.relpath(path)}: {n_arrays} arrays, {n_params} parameters, "
+        f"{os.path.getsize(path)} bytes, loaded with no missing or unexpected key")
+    if n_arrays != 36 or n_params != 269_882:
+        raise AssertionError(f"(f) weights file holds {n_arrays} arrays, {n_params} parameters")
+
+    # (a) the net, card against CPU
+    H, W = C4_SIZE
+    K = K_4K.copy()
+    K[:2] *= W / 3840.0
+    T = np.array([-BASELINE_M, 0.0, 0.0])
+    l, r = render_pair(torch, K, np.eye(3), T, H, W, seed=SEED, device=dev)
+    lh, rh = l.to(host), r.to(host)
+    x = torch.stack([l, r]).to(torch.float32) / 255.0
+    out, out_h = model(x), model_h(x.to(host))
+    errs = {name: float(((a.to(host) - b).abs().max() / b.abs().max()).item())
+            for name, a, b in zip(("logits", "desc", "rel"), out, out_h)}
+    log(f"[learned] (a) B=2 forward at {W}x{H}, largest |error| over largest |value|, "
+        f"{dev} vs {host}: " + json.dumps(errs))
+    if max(errs.values()) > 1e-5:
+        raise AssertionError(f"(a) the net on {dev} vs {host}: {errs}")
+
+    # (b) detection, card against CPU, and twice on the card
+    feats = {}
+    for refine in (True, False):
+        fc = XF.detect_pair(model, l, r, C4_MAXK, image_refine=refine)
+        fh = XF.detect_pair(model_h, lh, rh, C4_MAXK, image_refine=refine)
+        feats[refine] = fc
+        for side, a, b in zip("LR", fh, fc):
+            share, l2, n_h, n_c = same_features(torch, a, b)
+            log(f"[learned] (b) image_refine={refine} {side}: {n_h} CPU keypoints, {n_c} on {dev}; "
+                f"{share:.5f} within 0.01 px, their descriptors within {l2:.3e} in L2")
+            if share < 0.99 or l2 > 1e-4:
+                raise AssertionError(f"(b) {side} image_refine={refine}: share {share}, L2 {l2}")
+    again = XF.detect_pair(model, l, r, C4_MAXK)
+    same = all(torch.equal(a.keypoints, b.keypoints) and torch.equal(a.descriptors, b.descriptors)
+               for a, b in zip(feats[True], again))
+    log(f"[learned] (b) two runs on {dev}: keypoints and descriptors "
+        f"{'identical' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("(b) two runs of detect_pair differ")
+
+    # (c) the refinements: corners against float64, LK against the CPU
+    k0, valid = feats[False][0].keypoints, feats[False][0].mask
+    c32 = corner_subpix_patch(l, k0, win=3, max_iter=5, max_drift=5.0)
+    c64 = corner_subpix_patch(l, k0.double(), win=3, max_iter=5, max_drift=5.0)
+    cerr = (c32.double() - c64).abs().amax(-1)[valid]
+    log(f"[learned] (c) corner_subpix_patch float32 vs float64 on {dev}, {int(valid.sum())} "
+        f"keypoints: max {float(cerr.max()):.3e} px, median {float(cerr.median()):.3e}")
+    if float(cerr.max()) > 1e-3:
+        raise AssertionError(f"(c) corner_subpix_patch float32 vs float64: {float(cerr.max())} px")
+    fl, fr = feats[True]
+    m = MT.match_learned(fl.descriptors, fr.descriptors, fl.mask, fr.mask)
+    p1, p2, w = MT.gather_correspondences(fl.keypoints, fr.keypoints, m)
+    q, moved = refine_matches_lk(l, r, p1, p2, win=9, iters=16)
+    qh, moved_h = refine_matches_lk(lh, rh, p1.to(host), p2.to(host), win=9, iters=16)
+    wh = w.to(host)
+    good, good_h = (moved.to(host) != 0).any(-1), (moved_h != 0).any(-1)
+    flips = int(((good != good_h) & wh).sum().item())
+    both = good & good_h & wh
+    lk_err = float((q.to(host) - qh).abs().amax(-1)[both].max().item()) if bool(both.any()) else 0.0
+    log(f"[learned] (c) refine_matches_lk (win 9, 16 steps) on {int(wh.sum())} matches, {dev} vs "
+        f"{host}: {int(good_h[wh].sum())} moved on the CPU, {flips} differ in that; largest "
+        f"difference {lk_err:.3e} px")
+    if lk_err > 1e-3 or flips > 0.005 * int(wh.sum()):
+        raise AssertionError(f"(c) refine_matches_lk: {lk_err} px, {flips} flips")
+
+    # (d) config 4's step, as benchmarks.py:438-446 runs it
+    rect = RC.stereo_rectify(torch.tensor(K), None, torch.tensor(K), None, (W, H),
+                             torch.eye(3, dtype=torch.float64), torch.tensor(T), alpha=0.0)
+    P1, P2 = rect.P1.to(dev, torch.float32), rect.P2.to(dev, torch.float32)
+
+    def step():
+        f1, f2 = XF.detect_pair(model, l, r, C4_MAXK)
+        res = MT.match_learned(f1.descriptors, f2.descriptors)
+        a, b, ok = MT.gather_correspondences(f1.keypoints, f2.keypoints, res)
+        pts = G.triangulate_points(P1, P2, a, b)
+        return torch.where(ok[:, None], pts, torch.zeros_like(pts)).sum(0)
+
+    walls = []
+    mem0 = peak_start()
+    with no_kernels("config 4 step (learned)"):
+        for _ in range(1 + C4_WARM):
+            sync()
+            t0 = time.perf_counter()
+            step()
+            sync()
+            walls.append(time.perf_counter() - t0)
+    log(f"[learned] (d) config 4 step {W}x{H}, maxk {C4_MAXK}: first {1e3 * walls[0]:.3f} ms, "
+        f"warm median {1e3 * statistics.median(walls[1:]):.3f} ms/pair over {C4_WARM} "
+        f"(min {1e3 * min(walls[1:]):.3f}, max {1e3 * max(walls[1:]):.3f}); {peak_text(mem0)}")
+
+    def staged():
+        """The step with a synchronised mark after each stage: (seconds by
+        stage, left features, match mask, points)."""
+        secs, t = {}, [time.perf_counter()]
+
+        def mark(name):
+            sync()
+            now = time.perf_counter()
+            secs[name] = now - t[0]
+            t[0] = now
+        logits, desc, rel = model(torch.stack([l, r]).to(torch.float32) / 255.0)
+        mark("forward")
+        heats = XF.heatmap_from_logits(logits)
+        pk = [XF.peaks(heats[i], C4_MAXK) for i in range(2)]
+        mark("NMS + top-k")
+        kp = XF.refine_keypoints(torch.stack([l, r]), torch.stack([k for _, k in pk]))
+        mark("corner refinement")
+        f1, f2 = (XF.describe(kp[i], pk[i][0], desc[i], rel[i]) for i in range(2))
+        mark("descriptors")
+        res = MT.match_learned(f1.descriptors, f2.descriptors)
+        a, b, ok = MT.gather_correspondences(f1.keypoints, f2.keypoints, res)
+        mark("match")
+        pts = G.triangulate_points(P1, P2, a, b)
+        torch.where(ok[:, None], pts, torch.zeros_like(pts)).sum(0)
+        mark("triangulate")
+        return secs, f1, ok, pts
+
+    staged()
+    secs, f1, ok, pts = staged()
+    log("[learned] (d) stages (ms, synchronised marks, warm): "
+        + json.dumps({k: round(1e3 * v, 4) for k, v in secs.items()}))
+    if not torch.equal(f1.keypoints, feats[True][0].keypoints):
+        raise AssertionError("(d) the staged step's keypoints differ from detect_pair's")
+    profile_idle(torch, "config 4 step (learned)", step)
+    # depth of each valid match against the scene at its left pixel, on
+    # `dev` and for the same step on `host`
+    def depth_shares(f1, ok, pts, dev_):
+        uv = torch.cat([f1.keypoints.double(), torch.ones_like(f1.keypoints[:, :1]).double()], -1)
+        dirs = uv @ torch.linalg.inv(torch.tensor(K, device=dev_)).T   # z = 1: t is the depth
+        z_true, _, _ = scene_hit(torch, (0.0, 0.0, 0.0), dirs)
+        rel = ((pts[:, 2].double() / pts[:, 3].double() - z_true).abs() / z_true)[ok]
+        n = max(1, rel.numel())
+        return n, float((rel < 0.02).sum().item()) / n, float((rel < 0.1).sum().item()) / n
+
+    fh1, fh2 = XF.detect_pair(model_h, lh, rh, C4_MAXK)
+    a, b, ok_h = MT.gather_correspondences(fh1.keypoints, fh2.keypoints,
+                                           MT.match_learned(fh1.descriptors, fh2.descriptors))
+    pts_h = G.triangulate_points(P1.to(host), P2.to(host), a, b)
+    n, share, share10 = depth_shares(f1, ok, pts, dev)
+    n_h, share_h, _ = depth_shares(fh1, ok_h, pts_h, host)
+    log(f"[learned] (d) {n} matches ({n_h} on {host}); share whose triangulated depth is within "
+        f"2% of the scene's: {share:.4f} ({share_h:.4f} on {host}), within 10%: {share10:.4f}")
+    # Config 4 triangulates learned matches without LK (~1 px apart on this
+    # rendered scene, at 16-32 px of disparity), so 2% of the depth is ~0.3
+    # px and most matches miss it, the JAX reference's as the port's (their
+    # steps agree, tests/test_torch_xfeat.py). The card must agree with the
+    # CPU, and a broken triangulation (shares near 0) fails.
+    if abs(share - share_h) > 0.01 or share < 0.15:
+        raise AssertionError(f"(d) scene_hit share {share} ({share_h} on {host}); needs >= 0.15 "
+                             "and within 0.01 of the CPU's")
+
+    # (e) learned geometry on phase 7's raw 4K pair: detection at 1920x1080,
+    # LK against the full-size pair
+    pl, pr, K4, R_true, T_true = pair4k
+    base = float(np.linalg.norm(T_true))
+    runs = []
+
+    def geometry():
+        names, stamps = [], [time.perf_counter()]
+
+        def mark(name):
+            sync()
+            names.append(name)
+            stamps.append(time.perf_counter())
+        g = stages.estimate_geometry((pl, pr), base, K4, method="learned", device=dev,
+                                     on_stage=mark)
+        runs.append({n: b - a for n, a, b in zip(names, stamps, stamps[1:])})
+        return g
+
+    walls = []
+    mem0 = peak_start()
+    with no_kernels("learned estimate_geometry"):
+        for _ in range(1 + GEO_WARM):
+            sync()
+            t0 = time.perf_counter()
+            geometry()
+            sync()
+            walls.append(time.perf_counter() - t0)
+    Hp, Wp = pl.shape
+    log(f"[learned] (e) estimate_geometry(method='learned') {Wp}x{Hp}: first {walls[0]:.4f} s, "
+        f"warm {[round(v, 4) for v in walls[1:]]} (median {statistics.median(walls[1:]):.4f} s); "
+        f"{peak_text(mem0)}")
+    warm_stages = {k: round(statistics.median(r[k] for r in runs[1:]), 5) for k in runs[0]}
+    log("[learned] (e) stages (s): first " + json.dumps({k: round(v, 5) for k, v in runs[0].items()})
+        + ", warm median " + json.dumps(warm_stages))
+    profile_idle(torch, "learned estimate_geometry", lambda: stages.estimate_geometry(
+        (pl, pr), base, K4, method="learned", device=dev))
+
+    # The detection and the correspondences against the CPU's, which
+    # tests/test_torch_xfeat.py holds to the JAX reference's (1e-3 px, at
+    # the full size and at half of it).
+    cfg = PC.DEFAULT.match
+    p1, p2, mask, factor = stages._match_for_geometry(pl, pr, cfg, method="learned")
+    dl, dr = (stages._downscale(x, factor) for x in (pl, pr))
+    fc = stages._learned_features_pair(dl, dr, cfg.max_keypoints, None)
+    fh = stages._learned_features_pair(dl.to(host), dr.to(host), cfg.max_keypoints, None)
+    for side, a, b in zip("LR", fh, fc):
+        share, l2, n_h, n_c = same_features(torch, a, b)
+        log(f"[learned] (e) detection at {dl.shape[1]}x{dl.shape[0]} {side}: {n_h} CPU keypoints, "
+            f"{n_c} on {dev}; {share:.5f} within 0.01 px, their descriptors within {l2:.3e}")
+        if share < 0.99 or l2 > 1e-4:
+            raise AssertionError(f"(e) detection {side}: share {share}, L2 {l2}")
+    h1, h2, hmask, _ = stages._match_for_geometry(pl.to(host), pr.to(host), cfg, method="learned")
+    flips = int((hmask != mask.to(host)).sum())
+    both = hmask & mask.to(host)
+    gap = torch.maximum((h1 - p1.to(host)).abs().amax(-1), (h2 - p2.to(host)).abs().amax(-1))[both]
+    same = float((gap <= 1e-3).double().mean().item()) if gap.numel() else 0.0
+    log(f"[learned] (e) correspondences on {dev} vs {host}: {int(hmask.sum())} matches on {host}, "
+        f"{flips} differ in the mask; {same:.5f} of the common ones within 1e-3 px")
+    # A keypoint that differs (detection allows 1%) can change the mutual
+    # nearest neighbours of two rows of near-duplicate grid descriptors.
+    if flips > 0.02 * int(hmask.sum()) or same < 0.99:
+        raise AssertionError(f"(e) correspondences {dev} vs {host}: {flips} flips, share {same}")
+
+    # The pose against the truth over POSE_SEEDS seeds of the robust fits,
+    # here and on the same scene at 960x540, held to the JAX reference's
+    # fits on the same correspondences (REF_POSE).
+    K540 = K4.copy()
+    K540[:2] /= 4.0
+    l540, r540 = render_pair(torch, K540, R_true, T_true, 540, 960, seed=SEED, device=dev)
+    for pair, Kx in (((pl, pr), K4), ((l540, r540), K540)):
+        size = f"{pair[0].shape[1]}x{pair[0].shape[0]}"
+        ref = REF_POSE[size]
+        errs, counts = [], set()
+        for seed in range(POSE_SEEDS):
+            g = stages.estimate_geometry(pair, base, Kx, seed=seed, method="learned", device=dev)
+            errs.append(pose_errors(g["Rotation Matrix"], g["Translation Vector"], R_true, T_true))
+            counts.add(g["num_matches"])
+            log(f"[learned] (e) {size} seed {seed}: matches {g['num_matches']}, F inliers "
+                f"{g['num_inliers_F']}, E inliers {g['num_inliers_E']}; R error {errs[-1][0]:.4f} "
+                f"deg, t direction error {errs[-1][1]:.4f} deg")
+        if len(counts) != 1:
+            raise AssertionError(f"(e) {size}: the match count varies over the seeds: {counts}")
+        n = counts.pop()
+        r_med, t_med = (statistics.median(e[i] for e in errs) for i in (0, 1))
+        good = sum(r < POSE_R_DEG and t < POSE_T_DEG for r, t in errs)
+        want = ref.get("matches")
+        log(f"[learned] (e) {size} over seeds 0-{POSE_SEEDS - 1}: {n} matches"
+            + (f" (the reference: {want})" if want else "")
+            + f", median R error {r_med:.4f} deg, t {t_med:.4f} deg (the reference's fits on "
+            f"these matches, over {ref['seeds']} seeds: median R {ref['median_R']} deg, t "
+            f"{ref['median_t']} deg; bound R {ref['bound_R']}, t {ref['bound_t']}); {good} of "
+            f"{POSE_SEEDS} within R < {POSE_R_DEG} deg and t < {POSE_T_DEG} deg")
+        if want and abs(n - want) > 0.02 * want:
+            raise AssertionError(f"(e) {size}: {n} matches, the reference {want}")
+        if not (r_med <= ref["bound_R"] and t_med <= ref["bound_t"]):
+            raise AssertionError(f"(e) {size}: median pose error R {r_med} deg, t {t_med} deg over "
+                                 f"{POSE_SEEDS} seeds; bound R {ref['bound_R']}, t {ref['bound_t']}")
 
 
 def main() -> int:
@@ -1253,6 +1597,8 @@ def main() -> int:
             raise AssertionError(f"4K reproject_image_to_3d: relative error {rel} > {F32_RTOL}")
 
     # ------------------------------------------------------- 7. sparse 4K
+    raw4k = {}  # phase 7's raw pair and its rig, for phase 8
+
     @phase("7 sparse path 4K")
     def _():
         R_true = rotation_about(SCENE_AXIS, SCENE_DEG)
@@ -1265,6 +1611,7 @@ def main() -> int:
         log(f"[sparse] rendered the {W4}x{H4} scene pair on the card in {time.perf_counter() - t0:.2f} s; "
             f"R {SCENE_DEG} deg about {SCENE_AXIS}, T {SCENE_T} m")
         pair = (left, right)
+        raw4k["pair"] = (left, right, K_4K, R_true, T_true)
 
         def timed(label, fn, n=4):
             """fn() n times, synchronised: (last result, walls); logs the first
@@ -1305,9 +1652,7 @@ def main() -> int:
         log(f"[sparse] estimate_geometry peak device memory {peak / 2**30:.3f} GiB above "
             f"{mem0 / 2**30:.3f} GiB held")
         profile_idle(torch, "4K estimate_geometry", lambda: stages.estimate_geometry(pair, base, K_4K, device="cuda"))
-        R, t = geo["Rotation Matrix"], geo["Translation Vector"].ravel()
-        r_err = float(np.degrees(np.arccos(np.clip((np.trace(R @ R_true.T) - 1) / 2, -1, 1))))
-        t_err = float(np.degrees(np.arccos(np.clip(t @ T_true / base, -1, 1))))
+        r_err, t_err = pose_errors(geo["Rotation Matrix"], geo["Translation Vector"], R_true, T_true)
         log(f"[sparse] matches {geo['num_matches']}, F inliers {geo['num_inliers_F']}, "
             f"E inliers {geo['num_inliers_E']}; R error {r_err:.4f} deg, t direction error {t_err:.4f} deg")
         if not (r_err < 0.1 and t_err < 2.0):
@@ -1368,6 +1713,18 @@ def main() -> int:
         log(f"[sparse] (f) squared_distance_matrix {tuple(d32.shape)} vs float64: max error over the largest distance {rel:.3e}")
         if rel > 1e-4:
             raise AssertionError(f"(f) squared_distance_matrix relative error {rel} > 1e-4")
+
+    # ------------------------------------------------------ 8. learned path
+    @phase("8 learned path")
+    def _():
+        if "pair" not in raw4k:
+            raise AssertionError("phase 7 left no raw 4K pair")
+        # Under PyTorch's default cuDNN flags (TF32 allowed), which this
+        # script turned off above: the net must turn TF32 off itself.
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                        allow_tf32=True):
+            learned_phase(torch, dev, torch.device("cpu"),
+                          lambda label: main_path(label, (), tuple(KERNELS)), raw4k["pair"])
 
     if failures:
         log(f"FAILED phases: {failures}")

@@ -1,7 +1,9 @@
 """Command-line interface of the port.
 
-  match        pair folder -> keypoints and ratio-test matches (.npz)
-  geometry     pair folder -> E, R, unit T (F by LMedS, E by 5-point RANSAC)
+  match        pair folder -> keypoints and ratio-test matches (.npz);
+               --learned: the XFeat net's mutual matches
+  geometry     pair folder -> E, R, unit T (F by LMedS, E by 5-point RANSAC);
+               --learned: from the XFeat net's LK-refined matches
   rectify      pair folder -> rectified pair, epiline overlays, rectification.npz
   triangulate  pair folder -> sparse PLY of the E inliers
   disparity    rectified pair folder -> disparity.npy (+ disparity_jet.png)
@@ -11,9 +13,11 @@
 
 A pair folder holds img1.jpg (left) and img2.jpg (right). --calibration
 reads K (and, for rectify --undistort, dist) from an .npz; without it the
-reference's fallback K is used. Every verb runs on --device (default cuda).
-The reference's --learned, --cache, --viewer and --metrics are not ported
-yet (ROADMAP A.13, A.15) and are refused with exit code 2.
+reference's fallback K is used. --learned runs the net with the shipped
+weights (models/weights/xfeat_v4.npz), or with --model W.npz, an export of
+another reference checkpoint (tests/test_torch_xfeat.py). Every verb runs on
+--device (default cuda). The reference's --cache, --viewer and --metrics are
+not ported yet (ROADMAP A.15) and are refused with exit code 2.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import os
 import sys
 
 import numpy as np
+
+from stereo_reconstruction_cv_tpu_torch.models.checkpoint import CheckpointFormatError
 
 
 def _load_K(args):
@@ -53,7 +59,8 @@ def cmd_match(args) -> int:
     from stereo_reconstruction_cv_tpu_torch.pipeline import stages
 
     out = stages.detect_match(args.pair, contrast_threshold=args.contrast_threshold,
-                              method=_method(args), device=args.device)
+                              method=_method(args), model_checkpoint=args.model,
+                              device=args.device)
     print(f"keypoints: left={out['num_keypoints'][0]} right={out['num_keypoints'][1]}")
     print(f"good matches (ratio 0.75): {out['num_good_matches']}")
     if args.save:
@@ -66,7 +73,8 @@ def cmd_geometry(args) -> int:
     from stereo_reconstruction_cv_tpu_torch.pipeline import stages
 
     out = stages.estimate_geometry(args.pair, baseline=args.baseline, camera_matrix=_load_K(args),
-                                   method=_method(args), cache=args.cache, device=args.device)
+                                   method=_method(args), checkpoint=args.model, cache=args.cache,
+                                   device=args.device)
     for k in ("Essential Matrix", "Rotation Matrix", "Translation Vector"):
         print(f"\n== {k} ==\n{out[k]}")
     print(f"\nmatches: {out['num_matches']}  F inliers: {out['num_inliers_F']}  "
@@ -179,8 +187,9 @@ def main(argv=None) -> int:
             v.add_argument("--cache", nargs="?", const=".stereo_tpu_cache", default=None,
                            metavar="DIR", help="stage cache (not ported yet: ROADMAP A.15)")
         if learned:
-            v.add_argument("--learned", action="store_true",
-                           help="XFeat matcher (not ported yet: ROADMAP A.13)")
+            v.add_argument("--learned", action="store_true", help="XFeat-style matcher")
+            v.add_argument("--model", default=None, metavar="W.npz",
+                           help="weights for --learned, an .npz export (default: shipped v4)")
         if viewer:
             v.add_argument("--viewer", default=None,
                            help="HTML viewer (not ported yet: ROADMAP A.15)")
@@ -222,7 +231,7 @@ def main(argv=None) -> int:
             raise NotImplementedError("per-stage metrics (--metrics) are not ported yet "
                                       "(ROADMAP A.15)")
         return args.fn(args)
-    except NotImplementedError as e:
+    except (NotImplementedError, CheckpointFormatError) as e:
         print(e, file=sys.stderr)
         return 2
 

@@ -3,10 +3,9 @@
 The port's own copy of the classes of ``stereo_reconstruction_cv_tpu/
 config.py``: the same fields, defaults and ``with_``, so a configuration
 written for the reference reads the same here (``convert.sgbm_config`` and
-``convert.pipeline_config`` carry one across field by field). The learned
-matcher's fields (``learned_min_cossim``, ``lk_*``) and the calibration
-classes are carried for that parity; the port has no learned path or
-calibration yet (ROADMAP A.13, A.14).
+``convert.pipeline_config`` carry one across field by field). The
+calibration classes are carried for that parity; the port has no
+calibration yet (ROADMAP A.14).
 """
 
 from __future__ import annotations

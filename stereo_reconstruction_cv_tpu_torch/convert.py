@@ -1,7 +1,7 @@
 """Carry the reference's state across to the port.
 
-The port's paths have no learned weights; their state is the configuration
-and the rig geometry. This module converts both:
+The port's state is the configuration, the rig geometry and the learned
+net's weights. This module converts them:
 
 - ``sgbm_config`` and ``pipeline_config``: the reference's ``SGBMConfig`` or
   ``PipelineConfig`` (or any object with their fields) into the port's own
@@ -9,7 +9,9 @@ and the rig geometry. This module converts both:
 - ``from_reference_rectification``: the reference's ``RectifyResult`` (arrays
   converted with ``np.asarray``) or the ``rectification.npz`` its ``rectify``
   verb writes (key ``Q``; ``R1, R2, P1, P2`` where present) into the port's
-  ``RectifyResult`` of float64 tensors.
+  ``RectifyResult`` of float64 tensors;
+- ``xfeat_state_dict``: the reference's XFeatNet parameters, flattened to
+  ``{flax path: array}``, into the port's ``XFeatNet`` state_dict.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from stereo_reconstruction_cv_tpu_torch import config as C
+from stereo_reconstruction_cv_tpu_torch.models.xfeat import XFeatNet
 from stereo_reconstruction_cv_tpu_torch.ops.rectify import RectifyResult
 
 _FIELDS = ("R1", "R2", "P1", "P2", "Q")
@@ -76,3 +79,41 @@ def pipeline_config(ref_cfg) -> C.PipelineConfig:
     """The reference's PipelineConfig -> the port's, field by field through
     every nested configuration."""
     return _carry(C.PipelineConfig, ref_cfg)
+
+
+def _xfeat_names() -> dict:
+    """{flax path: port state_dict name} of every XFeatNet parameter."""
+    names = {}
+    for i in range(8):
+        block = f"params/ConvBlock_{i}/"
+        names[block + "Conv_0/kernel"] = f"blocks.{i}.conv.weight"
+        names[block + "LayerNorm_0/scale"] = f"blocks.{i}.norm.weight"
+        names[block + "LayerNorm_0/bias"] = f"blocks.{i}.norm.bias"
+    for i, conv in enumerate(("kpt.0", "kpt.1", "kpt.2", "skip", "desc", "rel")):
+        names[f"params/Conv_{i}/kernel"] = f"{conv}.weight"
+        names[f"params/Conv_{i}/bias"] = f"{conv}.bias"
+    return names
+
+
+def xfeat_state_dict(flat) -> dict:
+    """The reference's XFeatNet parameters as a flat {flax path: array}
+    mapping (``"params/ConvBlock_3/Conv_0/kernel"``, ...) -> the port's
+    XFeatNet state_dict of float32 CPU tensors: kernels HWIO -> OIHW,
+    LayerNorm scale -> weight. Raises on a missing or unexpected name and on
+    a shape the port's net does not have."""
+    names = _xfeat_names()
+    missing = sorted(set(names) - set(flat))
+    unexpected = sorted(set(flat) - set(names))
+    if missing or unexpected:
+        raise KeyError(f"XFeatNet parameters: missing {missing}, unexpected {unexpected}")
+    want = {k: tuple(v.shape) for k, v in XFeatNet().state_dict().items()}
+    out = {}
+    for path, name in names.items():
+        arr = np.asarray(flat[path], dtype=np.float32)
+        if path.endswith("/kernel") and arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
+        if arr.shape != want[name]:
+            raise ValueError(f"{path}: shape {np.shape(flat[path])} does not fit {name} "
+                             f"{want[name]}")
+        out[name] = torch.tensor(arr)
+    return out

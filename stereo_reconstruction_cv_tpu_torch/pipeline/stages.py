@@ -3,8 +3,10 @@ disparity -> 3D points -> point-cloud file.
 
 Ports of ``stereo_reconstruction_cv_tpu/pipeline/stages.py``:
 ``detect_match``, ``estimate_geometry``, ``rectify_pair``,
-``triangulate_sparse`` (the sparse path) and ``disparity``, ``reconstruct``,
-``export_point_cloud`` (PLY; the dense path). Each takes an explicit
+``triangulate_sparse`` (the sparse path; ``detect_match`` and
+``estimate_geometry`` also with ``method="learned"``, the XFeat-style net of
+``models/xfeat.py`` with its shipped weights) and ``disparity``,
+``reconstruct``, ``export_point_cloud`` (PLY; the dense path). Each takes an explicit
 ``device`` and runs every step there; asking for CUDA where none is
 available is an error, never a quiet move to the CPU. Images and disparity
 maps stay on the device as tensors; the sparse stages return the
@@ -30,12 +32,15 @@ import torch
 from stereo_reconstruction_cv_tpu_torch import config as C
 from stereo_reconstruction_cv_tpu_torch.io import image as IO
 from stereo_reconstruction_cv_tpu_torch.io import ply as PLY
+from stereo_reconstruction_cv_tpu_torch.models import checkpoint as CKPT
+from stereo_reconstruction_cv_tpu_torch.models import xfeat as XF
 from stereo_reconstruction_cv_tpu_torch.ops import disparity as DP
 from stereo_reconstruction_cv_tpu_torch.ops import epipolar as EP
 from stereo_reconstruction_cv_tpu_torch.ops import features as FT
 from stereo_reconstruction_cv_tpu_torch.ops import geometry as G
 from stereo_reconstruction_cv_tpu_torch.ops import matching as M
 from stereo_reconstruction_cv_tpu_torch.ops import rectify as RC
+from stereo_reconstruction_cv_tpu_torch.ops import refine as RF
 from stereo_reconstruction_cv_tpu_torch.ops import robust as RB
 
 
@@ -98,10 +103,7 @@ def default_camera_matrix(cfg: C.RectifyConfig = C.DEFAULT.rectify) -> np.ndarra
 
 
 def _refuse_unported(method: str = "classical", cache=None) -> None:
-    if method == "learned":
-        raise NotImplementedError("method='learned' (the XFeat matcher) is not ported yet "
-                                  "(ROADMAP A.13)")
-    if method != "classical":
+    if method not in ("classical", "learned"):
         raise ValueError(f"unknown matching method {method!r}")
     if cache is not None:
         raise NotImplementedError("the stage cache is not ported yet (ROADMAP A.15)")
@@ -124,17 +126,55 @@ def _numpy(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy()
 
 
+_XFEAT_CACHE: Dict = {}
+
+
+def _xfeat_model(checkpoint: Optional[str], dev: torch.device) -> XF.XFeatNet:
+    """The net with the weights of `checkpoint` (an .npz export; None: the
+    shipped v4 weights) on `dev`, loaded once per (checkpoint, device)."""
+    path = checkpoint or CKPT.default_checkpoint()
+    key = (path, str(dev))
+    if key not in _XFEAT_CACHE:
+        _XFEAT_CACHE[key] = CKPT.load_model(path, dev)
+    return _XFEAT_CACHE[key]
+
+
+def _learned_features(img: torch.Tensor, max_keypoints: int, checkpoint: Optional[str]):
+    """XFeat detection on one image, cropped to multiples of the 8-px cell."""
+    H0, W0 = img.shape[0] // 8 * 8, img.shape[1] // 8 * 8
+    return XF.detect(_xfeat_model(checkpoint, img.device), img[:H0, :W0], max_keypoints)
+
+
+def _learned_features_pair(imL: torch.Tensor, imR: torch.Tensor, max_keypoints: int,
+                           checkpoint: Optional[str]):
+    """Pair detection with one B=2 forward; two forwards for unequal shapes."""
+    if imR.shape != imL.shape:
+        return (_learned_features(imL, max_keypoints, checkpoint),
+                _learned_features(imR, max_keypoints, checkpoint))
+    H0, W0 = imL.shape[0] // 8 * 8, imL.shape[1] // 8 * 8
+    return XF.detect_pair(_xfeat_model(checkpoint, imL.device), imL[:H0, :W0], imR[:H0, :W0],
+                          max_keypoints)
+
+
 def detect_match(folder_or_pair, contrast_threshold: float = 0.04, ratio: float = 0.75,
                  max_keypoints: int = 2048, method: str = "classical",
-                 with_visualizations: bool = False, device="cuda") -> Dict:
-    """Keypoints, descriptors and kNN matches with Lowe's ratio test (0.75
-    on this inspection path), as numpy arrays and counts."""
+                 model_checkpoint: Optional[str] = None, with_visualizations: bool = False,
+                 device="cuda") -> Dict:
+    """Keypoints, descriptors and matches, as numpy arrays and counts:
+    SIFT with kNN matching and Lowe's ratio test (0.75 on this inspection
+    path), or with method="learned" the XFeat net (model_checkpoint, an .npz
+    export; None: the shipped weights) with mutual nearest neighbours of
+    cosine similarity >= 0.5."""
     _refuse_unported(method)
     dev = resolve_device(device)
     imL, imR = _load_pair(folder_or_pair, dev)
-    fl = FT.detect_and_describe(imL, max_keypoints, contrast_threshold)
-    fr = FT.detect_and_describe(imR, max_keypoints, contrast_threshold)
-    mres = M.knn2_match(fl.descriptors, fr.descriptors, fl.mask, fr.mask, ratio=ratio)
+    if method == "learned":
+        fl, fr = _learned_features_pair(imL, imR, max_keypoints, model_checkpoint)
+        mres = M.match_learned(fl.descriptors, fr.descriptors, fl.mask, fr.mask)
+    else:
+        fl = FT.detect_and_describe(imL, max_keypoints, contrast_threshold)
+        fr = FT.detect_and_describe(imR, max_keypoints, contrast_threshold)
+        mres = M.knn2_match(fl.descriptors, fr.descriptors, fl.mask, fr.mask, ratio=ratio)
     out = {
         "keypoints1": _numpy(fl.keypoints),
         "keypoints2": _numpy(fr.keypoints),
@@ -173,22 +213,41 @@ def _no_mark(stage: str) -> None:
 
 
 def _match_for_geometry(imL: torch.Tensor, imR: torch.Tensor, cfg: C.MatchConfig,
-                        max_dim: int = 2048, mark: Callable[[str], None] = _no_mark):
+                        max_dim: int = 2048, method: str = "classical",
+                        checkpoint: Optional[str] = None,
+                        mark: Callable[[str], None] = _no_mark):
     """Detect and match for the geometry path: frames above max_dim are
-    detected at an integer downscale (coordinates scaled back), then mutual
-    nearest neighbours pass the ratio test. Returns float64 (pts1, pts2,
-    mask, factor)."""
+    detected at an integer downscale (coordinates scaled back). SIFT
+    matches are mutual nearest neighbours that pass the ratio test; learned
+    ones (method="learned") mutual nearest neighbours of cosine similarity
+    >= cfg.learned_min_cossim, whose right points are then LK-refined
+    against the full-resolution pair (cfg.lk_*). Returns float64 (pts1,
+    pts2, mask, factor)."""
     factor = max(1, int(math.ceil(max(imL.shape) / max_dim)))
     dL = _downscale(imL, factor) if factor > 1 else imL
     dR = _downscale(imR, factor) if factor > 1 else imR
-    fl = FT.detect_and_describe(dL, cfg.max_keypoints, cfg.contrast_threshold)
-    fr = FT.detect_and_describe(dR, cfg.max_keypoints, cfg.contrast_threshold)
-    mark("detect")
-    mres = M.knn2_match(fl.descriptors, fr.descriptors, fl.mask, fr.mask,
-                        ratio=cfg.ratio_geometry, mutual=True)
+    if method == "learned":
+        fl, fr = _learned_features_pair(dL, dR, cfg.max_keypoints, checkpoint)
+        mark("detect")
+        mres = M.match_learned(fl.descriptors, fr.descriptors, fl.mask, fr.mask,
+                               min_cossim=cfg.learned_min_cossim)
+    else:
+        fl = FT.detect_and_describe(dL, cfg.max_keypoints, cfg.contrast_threshold)
+        fr = FT.detect_and_describe(dR, cfg.max_keypoints, cfg.contrast_threshold)
+        mark("detect")
+        mres = M.knn2_match(fl.descriptors, fr.descriptors, fl.mask, fr.mask,
+                            ratio=cfg.ratio_geometry, mutual=True)
     p1, p2, mask = M.gather_correspondences(fl.keypoints, fr.keypoints, mres)
+    p1, p2 = p1.to(torch.float64) * factor, p2.to(torch.float64) * factor
     mark("match")
-    return p1.to(torch.float64) * factor, p2.to(torch.float64) * factor, mask, factor
+    if method == "learned" and cfg.lk_refine:
+        # learned keypoints sit within ~0.5-1 px: align each right patch to
+        # its left one at full resolution
+        p2, _ = RF.refine_matches_lk(imL, imR, p1.to(torch.float32), p2.to(torch.float32),
+                                     win=cfg.lk_win, iters=cfg.lk_iters)
+        p2 = p2.to(torch.float64)
+        mark("LK")
+    return p1, p2, mask, factor
 
 
 class _Geometry(NamedTuple):
@@ -202,9 +261,11 @@ class _Geometry(NamedTuple):
     mask: torch.Tensor        # the matches
 
 
-def _geometry(imL, imR, K, seed: int, cfg: C.PipelineConfig, mark) -> _Geometry:
+def _geometry(imL, imR, K, seed: int, cfg: C.PipelineConfig, mark, method: str = "classical",
+              checkpoint: Optional[str] = None) -> _Geometry:
     """Match -> F (LMedS) -> E (5-point RANSAC on F's inliers) -> pose."""
-    p1, p2, mask, factor = _match_for_geometry(imL, imR, cfg.match, mark=mark)
+    p1, p2, mask, factor = _match_for_geometry(imL, imR, cfg.match, method=method,
+                                               checkpoint=checkpoint, mark=mark)
     gen = torch.Generator(device=K.device)
     gen.manual_seed(seed)
     fres = RB.find_fundamental(gen, p1, p2, mask=mask, method=cfg.robust.f_method,
@@ -240,19 +301,22 @@ def _geometry_dict(g: _Geometry, baseline: float) -> Dict:
 def estimate_geometry(folder_or_pair, baseline: float = 0.1,
                       camera_matrix: Optional[np.ndarray] = None, seed: int = 0,
                       pipeline_cfg: C.PipelineConfig = C.DEFAULT, method: str = "classical",
-                      cache=None, device="cuda",
+                      checkpoint: Optional[str] = None, cache=None, device="cuda",
                       on_stage: Optional[Callable[[str], None]] = None) -> Dict:
     """Two-view geometry of a raw pair: SIFT-semantics matches (ratio 0.7,
-    mutual) -> F by LMedS -> E by 5-point RANSAC (p 0.999, 1 px) ->
-    recoverPose. Returns the reference's dict ("Essential Matrix",
-    "Rotation Matrix", "Translation Vector" (unit norm), F, counts,
-    correspondences, E's inlier mask) as numpy. on_stage, when given, is
-    called with "detect", "match", "F", "E" and "pose" as each ends (a
-    timing hook; it may synchronise the device)."""
+    mutual), or with method="learned" the XFeat net's LK-refined matches
+    (checkpoint: an .npz export; None: the shipped weights) -> F by LMedS
+    -> E by 5-point RANSAC (p 0.999, 1 px) -> recoverPose. Returns the
+    reference's dict ("Essential Matrix", "Rotation Matrix", "Translation
+    Vector" (unit norm), F, counts, correspondences, E's inlier mask) as
+    numpy. on_stage, when given, is called with "detect", "match", ("LK" on
+    the learned path,) "F", "E" and "pose" as each ends (a timing hook; it
+    may synchronise the device)."""
     _refuse_unported(method, cache)
     dev = resolve_device(device)
     imL, imR = _load_pair(folder_or_pair, dev)
-    g = _geometry(imL, imR, _camera(camera_matrix, dev), seed, pipeline_cfg, on_stage or _no_mark)
+    g = _geometry(imL, imR, _camera(camera_matrix, dev), seed, pipeline_cfg, on_stage or _no_mark,
+                  method, checkpoint)
     return _geometry_dict(g, baseline)
 
 

@@ -16,7 +16,10 @@ the full-size shapes of the main path. The sparse path (torch ops, no
 kernel of its own) is held to the port's CPU run: SIFT keypoints and
 descriptors, the distance matrix, the robust fits given the same samples,
 and the pose of a rendered scene; the robust fits index no CUDA tensor with
-a boolean mask (a host sync).
+a boolean mask (a host sync). The learned matcher is held to its CPU run
+under PyTorch's default cuDNN flags: the net's outputs, detection with and
+without corner refinement (and twice on the card), the corner refinement
+against float64 and the LK refinement of matches.
 """
 
 import importlib.util
@@ -860,3 +863,72 @@ def test_estimate_geometry_on_the_card_finds_the_rig(dev):
     assert g["num_inliers_E"] > 0.5 * g["num_matches"] > 100
     n1 = EP.pixel_to_normalized(torch.from_numpy(g["pts1"]), torch.from_numpy(K))
     assert n1.dtype == torch.float64
+
+
+# The learned matcher (torch ops and cuDNN convolutions, no kernel of its
+# own), held to the port's CPU run under PyTorch's default cuDNN flags, which
+# allow TF32: the net must turn it off itself.
+
+@pytest.fixture()
+def tf32_default():
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                    allow_tf32=True):
+        yield
+
+
+def _xfeat_pair(dev, H, W):
+    from stereo_reconstruction_cv_tpu_torch.pipeline import stages as S
+
+    _, _, left, right = _scene(dev, H, W)
+    return S._xfeat_model(None, dev), S._xfeat_model(None, "cpu"), left, right
+
+
+@pytest.mark.parametrize("H,W", [(240, 320), (448, 704)])
+def test_xfeat_net_on_the_card_matches_the_cpu(dev, tf32_default, H, W):
+    model, model_h, left, right = _xfeat_pair(dev, H, W)
+    x = torch.stack([left, right]).float() / 255.0
+    for name, a, b in zip(("logits", "desc", "rel"), model(x), model_h(x.cpu())):
+        err = float((a.cpu() - b).abs().max() / b.abs().max())
+        assert err <= 1e-5, (name, err)
+    assert torch.backends.cudnn.allow_tf32  # the caller's flag, restored
+
+
+@pytest.mark.parametrize("image_refine", [True, False])
+@pytest.mark.parametrize("H,W", [(240, 320), (448, 704)])
+def test_xfeat_detection_on_the_card_matches_the_cpu(dev, tf32_default, H, W, image_refine):
+    from stereo_reconstruction_cv_tpu_torch.models import xfeat as XF
+
+    model, model_h, left, right = _xfeat_pair(dev, H, W)
+    card = XF.detect_pair(model, left, right, 512, image_refine=image_refine)
+    cpu = XF.detect_pair(model_h, left.cpu(), right.cpu(), 512, image_refine=image_refine)
+    for fc, fh in zip(card, cpu):
+        share, desc_err, n_cpu, _ = _smoke().same_features(torch, fh, fc)
+        assert n_cpu > 100 and share >= 0.99 and desc_err <= 1e-4
+    again = XF.detect_pair(model, left, right, 512, image_refine=image_refine)
+    assert all(torch.equal(a.keypoints, b.keypoints) for a, b in zip(card, again))
+
+
+@pytest.mark.parametrize("H,W", [(240, 320), (448, 704)])
+def test_xfeat_refinements_on_the_card(dev, H, W):
+    """corner_subpix_patch in float32 against its float64 run on the card;
+    refine_matches_lk on the card against the CPU (positions, and which
+    matches move)."""
+    from stereo_reconstruction_cv_tpu_torch.calib.chessboard import corner_subpix_patch
+    from stereo_reconstruction_cv_tpu_torch.models import xfeat as XF
+    from stereo_reconstruction_cv_tpu_torch.ops.refine import refine_matches_lk
+
+    model, _, left, right = _xfeat_pair(dev, H, W)
+    plain = XF.detect_pair(model, left, right, 512, image_refine=False)[0]
+    c32 = corner_subpix_patch(left, plain.keypoints, 3, 5, 5.0)
+    c64 = corner_subpix_patch(left, plain.keypoints.double(), 3, 5, 5.0)
+    assert float((c32.double() - c64).abs().amax(-1)[plain.mask].max()) <= 1e-3
+    fl, fr = XF.detect_pair(model, left, right, 512)
+    m = MT.match_learned(fl.descriptors, fr.descriptors, fl.mask, fr.mask)
+    p1, p2, w = MT.gather_correspondences(fl.keypoints, fr.keypoints, m)
+    q, moved = refine_matches_lk(left, right, p1, p2, win=9, iters=16)
+    qh, moved_h = refine_matches_lk(left.cpu(), right.cpu(), p1.cpu(), p2.cpu(), win=9, iters=16)
+    w = w.cpu()
+    good, good_h = (moved.cpu() != 0).any(-1), (moved_h != 0).any(-1)
+    assert int(w.sum()) > 50 and int(((good != good_h) & w).sum()) <= 0.005 * int(w.sum())
+    both = good & good_h & w
+    assert float((q.cpu() - qh).abs().amax(-1)[both].max()) <= 1e-3

@@ -211,7 +211,11 @@ def test_port_imports_no_jax():
         "import stereo_reconstruction_cv_tpu_torch.io.image, stereo_reconstruction_cv_tpu_torch.io.ply\n"
         "import stereo_reconstruction_cv_tpu_torch.tools.micro_wta\n"
         "import stereo_reconstruction_cv_tpu_torch.tools.micro_i16\n"
+        "import stereo_reconstruction_cv_tpu_torch.tools.learned_pose\n"
+        "import stereo_reconstruction_cv_tpu_torch.tools.time_config4\n"
         "import stereo_reconstruction_cv_tpu_torch.utils.draw\n"
+        "import stereo_reconstruction_cv_tpu_torch.models.xfeat, stereo_reconstruction_cv_tpu_torch.models.checkpoint\n"
+        "import stereo_reconstruction_cv_tpu_torch.calib.chessboard, stereo_reconstruction_cv_tpu_torch.ops.refine\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'stereo_reconstruction_cv_tpu' not in sys.modules\n"
         "assert 'PIL' not in sys.modules\n"
@@ -443,21 +447,40 @@ def test_cli_reconstruct_from_a_raw_pair(raw_pair, tmp_path, one_thread):
 
 def test_unported_options_are_refused_with_their_queue_item(raw_pair, tmp_path, capsys):
     folder, _, _ = raw_pair
-    for argv, item in ((["match", folder, "--learned"], "A.13"),
-                       (["geometry", folder, "--learned"], "A.13"),
-                       (["geometry", folder, "--cache"], "A.15"),
+    for argv, item in ((["geometry", folder, "--cache"], "A.15"),
                        (["rectify", folder, "--cache", str(tmp_path)], "A.15"),
                        (["triangulate", folder, "--viewer", "v.html"], "A.15"),
                        (["reconstruct", folder, "--viewer", "v.html"], "A.15"),
                        (["--metrics", "m.json", "match", folder], "A.15")):
         assert cli.main(argv + ["--device", "cpu"]) == 2, argv
         assert item in capsys.readouterr().err, argv
-    with pytest.raises(NotImplementedError, match="A.13"):
-        stages.estimate_geometry(folder, method="learned", device="cpu")
-    with pytest.raises(NotImplementedError, match="A.13"):
-        stages.detect_match(folder, method="learned", device="cpu")
     with pytest.raises(NotImplementedError, match="A.15"):
         stages.rectify_pair(folder, cache=str(tmp_path), device="cpu")
+
+
+def test_cli_match_and_geometry_learned(raw_pair, tmp_path, capsys, one_thread):
+    """--learned with the shipped weights; --model takes an .npz export and
+    refuses the reference's orbax directory with the export hint."""
+    folder, calib, R = raw_pair
+    out = tmp_path / "learned.npz"
+    assert cli.main(["match", folder, "--learned", "--device", "cpu", "--save", str(out)]) == 0
+    with np.load(out) as z:
+        assert z["keypoints1"].shape == (2048, 2) and z["descriptors1"].shape == (2048, 64)
+        assert int(z["match_mask"].sum()) > 300
+    capsys.readouterr()
+    from stereo_reconstruction_cv_tpu_torch.models.checkpoint import default_checkpoint
+
+    assert cli.main(["geometry", folder, "--learned", "--model", default_checkpoint(),
+                     "--calibration", calib, "--device", "cpu"]) == 0
+    text = capsys.readouterr().out
+    R_est = np.array([[float(v) for v in line.strip(" []").split()]
+                      for line in text.split("== Rotation Matrix ==")[1].split("==")[0].strip().splitlines()])
+    assert _rotation_error_deg(R_est, R) < 1.5 and "E inliers" in text
+    for verb in ("match", "geometry"):
+        argv = [verb, folder, "--learned", "--model", str(ROOT / "checkpoints" / "xfeat_v4"),
+                "--device", "cpu"]
+        assert cli.main(argv) == 2
+        assert "tests/test_torch_xfeat.py CHECKPOINT_DIR OUT.npz" in capsys.readouterr().err
 
 
 def test_cli_reference_range_fallbacks(capsys):
