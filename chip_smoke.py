@@ -83,12 +83,24 @@ Phases:
                timed by stages, its correspondences against the CPU's, and
                its median pose over POSE_SEEDS seeds there and on the same
                scene at 960x540 against the JAX reference's fits (REF_POSE)
-Each main path of phases 4, 4b, 5, 7 and 8 (config 2 with device, host and
+  9. calib     44 views of a 9 x 7 chessboard rendered on the card at 4K
+               (calibration_set: 22 poses, each seen by both cameras of
+               phase 7's rig, with distortion), every board detected,
+               calibrate_camera on the 44 and calibrate_stereo on the 22
+               pairs, first and warm, timed (calib_s, seconds a view, the
+               LM's seconds, the idle share); the corners, K, mean_error
+               and the rig against the truth, 4 views' corners and the
+               LM's K against the CPU; then config 3's device chain on
+               phase 5's pair with the calibrated K, its map against the
+               anchor K's scaled by the ratio of their P1[0, 0]
+Each main path of phases 4, 4b, 5, 7, 8 and 9 (config 2 with device, host and
 no speckle, the 720p CLI chain, the two tools, the 4K pair -> PLY, config
-3's chain, the raw pair's dense chain, config 4's step and learned geometry)
+3's chain, the raw pair's dense chain, config 4's step, learned geometry,
+the calibration and config 3's chain at the anchor and the calibrated K)
 runs with the launch counts zeroed just before it and read just after:
 every kernel it should run must have launched in it, a path with the host
-speckle must launch no speckle kernel, and the learned paths none. The kernels line sums the paths'
+speckle must launch no speckle kernel, and the learned paths and the
+calibration none. The kernels line sums the paths'
 counts; each kernel's bound there is the larger of its bytes over the card's
 memory rate and its operations over its peak rate (PEAK_BYTES_S,
 PEAK_OPS_S), at the inputs its time was taken on. To compare another
@@ -455,7 +467,7 @@ def profile_idle(torch, label: str, fn) -> None:
         t, n = items.get(name, (0.0, 0))
         items[name] = (t + e - s, n + 1)
     log(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
-        f"idle share {1.0 - busy / wall_us:.4f}")
+        f"idle share {1.0 - busy / wall_us:.4f}, {len(spans)} device items")
     for name, (t, n) in sorted(items.items(), key=lambda kv: -kv[1][0])[:8]:
         log(f"    {t / 1e3:9.3f} ms  x{n:<4d} {name[:90]}")
 
@@ -778,6 +790,252 @@ def learned_phase(torch, dev, host, no_kernels, pair4k):
         if not (r_med <= ref["bound_R"] and t_med <= ref["bound_t"]):
             raise AssertionError(f"(e) {size}: median pose error R {r_med} deg, t {t_med} deg over "
                                  f"{POSE_SEEDS} seeds; bound R {ref['bound_R']}, t {ref['bound_t']}")
+
+
+# Phase 9's calibration set: CALIB_POSES board poses, each seen by both
+# cameras of phase 7's rig (K_4K, x2 = R x1 + T), both with distortion
+# CALIB_DIST; a board of 9 x 7 inner corners, CALIB_SQUARE m squares and a
+# one-square white margin, whose checker spans CALIB_SPAN of the frame's
+# width, tilted up to CALIB_TILT_DEG about x and y (and z by 0.7 of it),
+# placed where both cameras see it whole. Views are point-sampled
+# CALIB_SS x CALIB_SS per pixel, blurred and noisy.
+CALIB_POSES = 22
+CALIB_DIST = (0.2, -0.55, -1e-5, 5e-4, 0.38)
+CALIB_COLS, CALIB_ROWS, CALIB_SQUARE = 9, 7, 0.03
+CALIB_SPAN = (0.2, 0.45)
+CALIB_TILT_DEG = 30.0
+CALIB_SS = 4
+CALIB_BLUR, CALIB_NOISE = 0.8, 2.0  # Gaussian sigma (px) and noise sigma (grey levels)
+CALIB_CPU_VIEWS = 4  # views detected on the CPU as well
+
+
+def board_poses(torch, n, K, W, H, seed=SEED, border=24):
+    """n board poses (R, t), board -> camera 1, each one whose board and
+    margin both cameras of phase 7's rig see whole, `border` px inside the
+    frame (rejection sampling from a seeded generator)."""
+    from stereo_reconstruction_cv_tpu_torch.ops import geometry as G
+
+    f64 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64)  # noqa: E731
+    rng = np.random.default_rng(seed)
+    R_rig, T_rig = rotation_about(SCENE_AXIS, SCENE_DEG), np.array(SCENE_T)
+    s, c, r = CALIB_SQUARE, CALIB_COLS, CALIB_ROWS
+    a, b = np.linspace(-2, c + 1, 4 * (c + 3)) * s, np.linspace(-2, r + 1, 4 * (r + 3)) * s
+    edge = np.concatenate([np.stack([a, np.full_like(a, b[0])], 1), np.stack([a, np.full_like(a, b[-1])], 1),
+                           np.stack([np.full_like(b, a[0]), b], 1), np.stack([np.full_like(b, a[-1]), b], 1)])
+    edge = np.concatenate([edge, np.zeros((len(edge), 1))], 1)
+    centre = np.array([(c - 1) / 2 * s, (r - 1) / 2 * s, 0.0])
+    tilt = np.radians(CALIB_TILT_DEG) * np.array([1.0, 1.0, 0.7])
+    poses = []
+    while len(poses) < n:
+        z = (c + 1) * s * K[0, 0] / (rng.uniform(*CALIB_SPAN) * W)
+        rv = rng.uniform(-1, 1, 3) * tilt
+        R = rotation_about(rv, np.degrees(np.linalg.norm(rv)))
+        mid = np.array([-T_rig[0] / 2 + rng.uniform(-0.45, 0.45) * z * W / (2 * K[0, 0]),
+                        rng.uniform(-0.4, 0.4) * z * H / (2 * K[1, 1]), z])
+        t = mid - R @ centre
+        ok = True
+        for Rc, tc in ((R, t), (R_rig @ R, R_rig @ t + T_rig)):
+            px = G.project_points(f64(edge), G.matrix_to_rodrigues(f64(Rc)), f64(tc), f64(K),
+                                  f64(CALIB_DIST)).numpy()
+            depth = edge @ Rc[2] + tc[2]
+            ok &= bool((depth > 0).all() and (px >= border).all() and (px[:, 0] < W - border).all()
+                       and (px[:, 1] < H - border).all())
+        if ok:
+            poses.append((R, t))
+    return poses
+
+
+def render_board(torch, K, R, t, H, W, seed, device, ss=CALIB_SS, chunk=270):
+    """(H, W) uint8 view of the board at pose (R, t) (board -> camera) by a
+    camera with intrinsics K and distortion CALIB_DIST: each of ss x ss
+    samples a pixel is undistorted (the port's undistort_normalized),
+    ray-cast onto the board plane and shaded (dark and light squares, the
+    white margin, a grey ground), their mean blurred by a Gaussian of
+    CALIB_BLUR px, plus Gaussian noise of CALIB_NOISE from `seed`. Rows go
+    in chunks of `chunk`, float32."""
+    from stereo_reconstruction_cv_tpu_torch.ops import geometry as G
+
+    f32 = dict(dtype=torch.float32, device=device)
+    Rt = torch.as_tensor(np.asarray(R).T, **f32)            # camera -> board
+    ob = -(Rt @ torch.as_tensor(np.asarray(t), **f32))      # camera centre on the board
+    dist = torch.as_tensor(CALIB_DIST, **f32)
+    o = (torch.arange(ss, **f32) + 0.5) / ss - 0.5
+    xs = ((torch.arange(W, **f32)[:, None] + o).reshape(-1) - float(K[0, 2])) / float(K[0, 0])
+    img = torch.empty((H, W), **f32)
+    for y0 in range(0, H, chunk):
+        n = min(chunk, H - y0)
+        ys = ((torch.arange(y0, y0 + n, **f32)[:, None] + o).reshape(-1) - float(K[1, 2])) / float(K[1, 1])
+        xd = torch.stack(torch.broadcast_tensors(xs[None, :], ys[:, None]), dim=-1)
+        xy = G.undistort_normalized(xd, dist)
+        d = xy[..., 0:1] * Rt[:, 0] + xy[..., 1:2] * Rt[:, 1] + Rt[:, 2]  # rays on the board
+        lam = -ob[2] / d[..., 2]
+        u = (ob[0] + lam * d[..., 0]) / CALIB_SQUARE
+        v = (ob[1] + lam * d[..., 1]) / CALIB_SQUARE
+        front = lam > 0
+        checker = front & (u >= -1) & (u < CALIB_COLS) & (v >= -1) & (v < CALIB_ROWS)
+        board = front & (u >= -2) & (u < CALIB_COLS + 1) & (v >= -2) & (v < CALIB_ROWS + 1)
+        dark = checker & ((torch.floor(u) + torch.floor(v)) % 2 == 0)
+        val = torch.where(dark, 35.0, torch.where(board, 215.0, 110.0))
+        img[y0:y0 + n] = val.reshape(n, ss, W, ss).mean((1, 3))
+    r = int(math.ceil(3 * CALIB_BLUR))
+    k = torch.exp(-0.5 * (torch.arange(-r, r + 1, **f32) / CALIB_BLUR) ** 2)
+    k = k / k.sum()
+    p = torch.nn.functional.pad(img[None, None], (r, r, r, r), mode="replicate")[0, 0]
+    img = sum(k[i] * p[i:i + H] for i in range(2 * r + 1))
+    img = sum(k[i] * img[:, i:i + W] for i in range(2 * r + 1))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    img = img + CALIB_NOISE * torch.randn((H, W), generator=gen, **f32)
+    return torch.round(img).clamp(0, 255).to(torch.uint8)
+
+
+def calibration_set(torch, device, H=2160, W=3840, n=CALIB_POSES, ss=CALIB_SS):
+    """The calibration set: for each of n poses, both cameras' views (uint8
+    (H, W) on `device`, ss x ss samples a pixel) and their true corners
+    (project_points of the object grid, float64); the rig's K (K_4K scaled
+    to W), R and T."""
+    from stereo_reconstruction_cv_tpu_torch.calib import zhang as Z
+    from stereo_reconstruction_cv_tpu_torch.ops import geometry as G
+
+    K = K_4K.copy()
+    K[:2] *= W / 3840.0
+    R_rig, T_rig = rotation_about(SCENE_AXIS, SCENE_DEG), np.array(SCENE_T)
+    obj = Z.build_object_points(CALIB_COLS, CALIB_ROWS, CALIB_SQUARE)
+    f64 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64)  # noqa: E731
+    views, truth = ([], []), ([], [])
+    for i, (R, t) in enumerate(board_poses(torch, n, K, W, H)):
+        for cam, (Rc, tc) in enumerate(((R, t), (R_rig @ R, R_rig @ t + T_rig))):
+            views[cam].append(render_board(torch, K, Rc, tc, H, W, seed=2 * i + cam, device=device,
+                                           ss=ss))
+            rv = G.matrix_to_rodrigues(f64(Rc))
+            truth[cam].append(G.project_points(obj, rv, f64(tc), f64(K), f64(CALIB_DIST)))
+    return {"views": views, "truth": tuple(torch.stack(x) for x in truth), "obj": obj, "K": K,
+            "R": R_rig, "T": T_rig, "size": (W, H)}
+
+
+def calibrate_set(torch, cs, sync=lambda: None):
+    """Detection in every view, calibrate_camera on all views,
+    calibrate_stereo on the pairs, each stage timed (sync() at its end):
+    the corners of both cameras (V, N, 2), the results, the seconds, and the
+    views where no board was found."""
+    from stereo_reconstruction_cv_tpu_torch.calib import chessboard as CB
+    from stereo_reconstruction_cv_tpu_torch.calib import stereo as SCAL
+    from stereo_reconstruction_cv_tpu_torch.calib import zhang as Z
+
+    t0 = time.perf_counter()
+    corners, missed = ([], []), []
+    for cam in (0, 1):
+        for i, img in enumerate(cs["views"][cam]):
+            found, c = CB.find_chessboard_corners(img, CALIB_COLS, CALIB_ROWS)
+            if not found:
+                missed.append((cam, i))
+            corners[cam].append(c)
+    sync()
+    t1 = time.perf_counter()
+    if missed:
+        return {"missed": missed, "detect_s": t1 - t0}
+    c1, c2 = torch.stack(corners[0]), torch.stack(corners[1])
+    obj = cs["obj"].to(c1.device)
+    mono = Z.calibrate_camera(obj, torch.cat([c1, c2]), cs["size"])
+    sync()
+    t2 = time.perf_counter()
+    rig = SCAL.calibrate_stereo(obj, c1, c2, cs["size"])
+    sync()
+    t3 = time.perf_counter()
+    return {"missed": missed, "corners": (c1, c2), "mono": mono, "rig": rig,
+            "detect_s": t1 - t0, "lm_s": t2 - t1, "stereo_s": t3 - t2}
+
+
+def calibration_phase(torch, dev, host, no_kernels, config3):
+    """Phase 9: the calibration set rendered on the card `dev`, detected and
+    calibrated there (no_kernels(label) wraps it: no hand-written kernel may
+    launch), held to the truth, the first CALIB_CPU_VIEWS views' detections
+    and the LM to `host` (the CPU), then config3(K) (config 3's device chain
+    at K, which returns its disparity map, keep mask and P1[0, 0]) with the
+    calibrated K against the anchor K_4K. Raises AssertionError on a failed
+    check."""
+    from stereo_reconstruction_cv_tpu_torch.calib import chessboard as CB
+    from stereo_reconstruction_cv_tpu_torch.calib import zhang as Z
+    from stereo_reconstruction_cv_tpu_torch.utils.timing import card
+
+    sync = torch.cuda.synchronize
+    t0 = time.perf_counter()
+    cs = calibration_set(torch, dev)
+    sync()
+    V = 2 * len(cs["views"][0])
+    W, H = cs["size"]
+    log(f"[calib] rendered {V} views of {CALIB_POSES} poses at {W}x{H} ({CALIB_SS}x{CALIB_SS} "
+        f"samples a pixel) on the card in {time.perf_counter() - t0:.2f} s")
+    with no_kernels("calibration: detection, calibrate_camera, calibrate_stereo (first and warm)"):
+        first = calibrate_set(torch, cs, sync)
+        run = calibrate_set(torch, cs, sync) if not first["missed"] else first
+    if run["missed"]:
+        raise AssertionError(f"board not found in views (camera, pose) {run['missed']}")
+    log(f"[calib] first run (cold: cuSOLVER and torch.func set-up): detection {first['detect_s']:.4f} s, "
+        f"calibrate_camera {first['lm_s']:.4f} s, calibrate_stereo {first['stereo_s']:.4f} s")
+    c1, c2 = run["corners"]
+    calib_s = run["detect_s"] + run["lm_s"]
+    err = torch.cat([c1 - cs["truth"][0].to(dev), c2 - cs["truth"][1].to(dev)]).norm(dim=-1)
+    mono, rig = run["mono"], run["rig"]
+    K = mono.K.cpu().numpy()
+    Kt = cs["K"]
+    fx_rel, fy_rel = abs(K[0, 0] / Kt[0, 0] - 1), abs(K[1, 1] / Kt[1, 1] - 1)
+    cx_px, cy_px = abs(K[0, 2] - Kt[0, 2]), abs(K[1, 2] - Kt[1, 2])
+    r_err, t_err = pose_errors(rig.R.cpu().numpy(), rig.T.cpu().numpy(), cs["R"], cs["T"])
+    log(f"[calib] {V} of {V} boards found; corner error against the truth: mean "
+        f"{float(err.mean()):.4f} px, max {float(err.max()):.4f} px")
+    log(f"[calib] warm: calib_s {calib_s:.4f} (detection {run['detect_s']:.4f} s, "
+        f"{run['detect_s'] / V:.4f} s a view; calibrate_camera LM {run['lm_s']:.4f} s); "
+        f"calibrate_stereo {run['stereo_s']:.4f} s")
+    log(f"[calib] K {K.round(4).tolist()}, dist {mono.dist.cpu().numpy().round(5).tolist()}; "
+        f"fx {fx_rel:.2e}, fy {fy_rel:.2e} relative, cx {cx_px:.3f} px, cy {cy_px:.3f} px off the "
+        f"truth; mean_error {float(mono.mean_error):.5f} px, rms {float(mono.rms):.5f} px")
+    log(f"[calib] stereo: R error {r_err:.5f} deg, T direction error {t_err:.4f} deg, |T| "
+        f"{float(rig.T.norm()):.5f} m (truth {float(np.linalg.norm(cs['T'])):.5f}), rms "
+        f"{float(rig.rms):.5f} px")
+    profile_idle(torch, f"calibration ({V} detections + calibrate_camera)", lambda: (
+        [CB.find_chessboard_corners(img, CALIB_COLS, CALIB_ROWS) for v in cs["views"] for img in v],
+        Z.calibrate_camera(cs["obj"].to(dev), torch.cat([c1, c2]), cs["size"])))
+    checks = {"corner error <= 0.25 px": float(err.mean()) <= 0.25,
+              "fx, fy within 0.5%": max(fx_rel, fy_rel) <= 5e-3,
+              "cx, cy within 5 px": max(cx_px, cy_px) <= 5.0,
+              "mean_error <= 0.1 px": float(mono.mean_error) <= 0.1,
+              "stereo R within 0.05 deg": r_err <= 0.05,
+              "stereo T direction within 0.5 deg": t_err <= 0.5}
+
+    # The card against the CPU: detection on CALIB_CPU_VIEWS views, and the
+    # LM on the card's corners.
+    det_err = 0.0
+    for i in range(CALIB_CPU_VIEWS):
+        found, ch = CB.find_chessboard_corners(cs["views"][0][i].to(host), CALIB_COLS, CALIB_ROWS)
+        if not found:
+            raise AssertionError(f"view {i}: the CPU finds no board")
+        det_err = max(det_err, float((ch - c1[i].to(host)).abs().max()))
+    mono_h = Z.calibrate_camera(cs["obj"], torch.cat([c1, c2]).to(host), cs["size"])
+    k_rel = float((mono.K.to(host) - mono_h.K).abs().max() / mono_h.K.abs().max())
+    log(f"[calib] card vs CPU: corners of {CALIB_CPU_VIEWS} views within {det_err:.2e} px; K after "
+        f"the LM within {k_rel:.2e} relative")
+    checks["card vs CPU corners within 1e-3 px"] = det_err <= 1e-3
+    checks["card vs CPU K within 1e-8 relative"] = k_rel <= 1e-8
+
+    # Config 3's device chain with the calibrated K, against the anchor's map
+    # scaled by the ratio of the rectified focal lengths.
+    d_a, keep_a, f_a = config3(K_4K)
+    d_l, keep_l, f_l = config3(K)
+    both = keep_a & keep_l
+    close = ((d_l - d_a * (f_l / f_a)).abs() <= 1.0) & both
+    share = float(close.sum()) / max(1, int(both.sum()))
+    log(f"[calib] config 3 with the calibrated K: P1[0,0] {f_l:.3f} (anchor {f_a:.3f}); {share:.4f} "
+        f"of the {int(both.sum())} pixels kept in both maps within 1 px of the anchor's map x "
+        f"{f_l / f_a:.6f}")
+    checks["config 3 live-K map within 1 px on >= 95%"] = share >= 0.95
+    log(f"[calib] {card()}: calib_s {calib_s:.4f} s warm ({first['detect_s'] + first['lm_s']:.4f} "
+        f"first), {run['detect_s'] / V:.4f} s a view, LM {run['lm_s']:.4f} s, mean_error {float(mono.mean_error):.5f} px, corner error "
+        f"{float(err.mean()):.4f} px (idle share: the profile line above)")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"calibration checks failed: {failed}")
+    return cs, run
 
 
 def main() -> int:
@@ -1725,6 +1983,44 @@ def main() -> int:
                                         allow_tf32=True):
             learned_phase(torch, dev, torch.device("cpu"),
                           lambda label: main_path(label, (), tuple(KERNELS)), raw4k["pair"])
+
+    # -------------------------------------------------- 9. calibration 4K
+    @phase("9 calibration 4K")
+    def _():
+        if "left" not in frame:
+            raise AssertionError("phase 5 left no 4K pair for config 3")
+        cfg3 = DP.SGBMConfig(num_disparities=D4, num_directions=5)
+        core = cfg3.with_(speckle_window_size=0)
+        l_dev, r_dev = (torch.from_numpy(frame[k]).to(dev) for k in ("left", "right"))
+
+        def config3(K):
+            """Config 3's device chain on phase 5's pair, rectified for the rig
+            at K: (disparity map, keep mask, P1[0, 0]), timed."""
+            Kt = torch.tensor(np.asarray(K), dtype=torch.float64)
+            res = RC.stereo_rectify(Kt, None, Kt, None, (W4, H4), torch.eye(3, dtype=torch.float64),
+                                    torch.tensor([-BASELINE_M, 0.0, 0.0], dtype=torch.float64),
+                                    alpha=0.0)
+            Q = res.Q.to(device=dev, dtype=torch.float32)
+            walls, out = [], None
+            label = "anchor" if np.array_equal(np.asarray(K), K_4K) else "calibrated"
+            with main_path(f"4K config 3 device chain, {label} K", dense + speckle):
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    rl = RC.rectify_remap(l_dev, Kt, None, res.R1, res.P1)
+                    rr = RC.rectify_remap(r_dev, Kt, None, res.R2, res.P2)
+                    d, v = DP.sgbm_disparity_auto(rl, rr, core)
+                    keep = DP._speckle(d, v, cfg3)
+                    pts = G.reproject_image_to_3d(d, Q)
+                    total = float(torch.where(keep[..., None], pts, torch.zeros_like(pts)).sum().item())
+                    walls.append(time.perf_counter() - t0)
+                    out = (d, keep, float(res.P1[0, 0]))
+            log(f"[calib] config 3 device chain, {label} K: s/pair first {walls[0]:.5f}, warm "
+                f"{[round(w, 5) for w in walls[1:]]}; masked point sum {total}")
+            return out
+
+        calibration_phase(torch, dev, torch.device("cpu"),
+                          lambda label: main_path(label, (), tuple(KERNELS)), config3)
 
     if failures:
         log(f"FAILED phases: {failures}")

@@ -1,6 +1,7 @@
 """Image loading and saving for the CLI (after ``stereo_reconstruction_cv_tpu/io/image.py``).
 
-A stereo pair folder holds img1.jpg (left) and img2.jpg (right). Decoding
+A stereo pair folder holds img1.jpg (left) and img2.jpg (right); a
+calibration folder's images are its *.jpg files. Decoding
 and encoding go through PIL, which is imported inside the functions that use
 it, so the package imports where PIL is absent. The reference decodes JPEGs
 with its own libjpeg build where present (bit-exact to cv2.imread) and with
@@ -9,8 +10,9 @@ PIL otherwise; the port always uses PIL.
 
 from __future__ import annotations
 
+import glob
 import os
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 
@@ -46,3 +48,8 @@ def load_stereo_pair(folder: str) -> Tuple[np.ndarray, np.ndarray]:
             f"stereo pair folder {folder!r} must contain img1.jpg and img2.jpg"
         )
     return load_gray(p1), load_gray(p2)
+
+
+def glob_calibration_images(folder: str) -> List[str]:
+    """The sorted *.jpg files of a calibration folder."""
+    return sorted(glob.glob(os.path.join(folder, "*.jpg")))

@@ -28,57 +28,56 @@ def from_homogeneous(pts: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
     return pts[..., :-1] / w
 
 
-def rodrigues_to_matrix(rvec: torch.Tensor) -> torch.Tensor:
-    """Axis-angle (3,) -> rotation matrix (3, 3), cv2.Rodrigues; series
-    expansions near theta = 0."""
-    rvec = rvec.reshape(3)
-    theta2 = torch.dot(rvec, rvec)
+def rodrigues_to_matrix(rvecs: torch.Tensor) -> torch.Tensor:
+    """Axis-angle (..., 3) -> rotation matrices (..., 3, 3), cv2.Rodrigues;
+    series expansions near theta = 0. Indexes no tensor by a value, so it
+    runs under torch.func.vmap and jacfwd (the calibration's Jacobians)."""
+    theta2 = (rvecs * rvecs).sum(-1)[..., None, None]
     theta = torch.sqrt(theta2)
     small = theta2 < 1e-16
     one = torch.ones_like(theta)
     s = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / torch.where(small, one, theta))
     c1 = torch.where(small, 0.5 - theta2 / 24.0,
                      (1.0 - torch.cos(theta)) / torch.where(small, one, theta2))
-    kx, ky, kz = rvec[0], rvec[1], rvec[2]
+    kx, ky, kz = rvecs[..., 0], rvecs[..., 1], rvecs[..., 2]
     z = torch.zeros_like(kx)
-    K = torch.stack([torch.stack([z, -kz, ky]), torch.stack([kz, z, -kx]),
-                     torch.stack([-ky, kx, z])])
-    eye = torch.eye(3, dtype=rvec.dtype, device=rvec.device)
+    K = torch.stack([torch.stack([z, -kz, ky], -1), torch.stack([kz, z, -kx], -1),
+                     torch.stack([-ky, kx, z], -1)], -2)
+    eye = torch.eye(3, dtype=rvecs.dtype, device=rvecs.device)
     return eye + s * K + c1 * (K @ K)
 
 
-def matrix_to_quaternion(R: torch.Tensor) -> torch.Tensor:
-    """Rotation matrix (3, 3) -> unit quaternion (w, x, y, z), w >= 0
-    (Shepperd's method: the largest of the four pivots)."""
-    m00, m01, m02 = R[0, 0], R[0, 1], R[0, 2]
-    m10, m11, m12 = R[1, 0], R[1, 1], R[1, 2]
-    m20, m21, m22 = R[2, 0], R[2, 1], R[2, 2]
+def matrix_to_rodrigues(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (..., 3, 3) -> axis-angle (..., 3), cv2.Rodrigues,
+    through the unit quaternion of Shepperd's method (the largest of the
+    four pivots, w >= 0); the pivot is gathered, not indexed, so it runs
+    under torch.func.vmap and jacfwd."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
     t0 = 1.0 + m00 + m11 + m22
     t1 = 1.0 + m00 - m11 - m22
     t2 = 1.0 - m00 + m11 - m22
     t3 = 1.0 - m00 - m11 + m22
     qs = torch.stack([
-        torch.stack([t0, m21 - m12, m02 - m20, m10 - m01]),
-        torch.stack([m21 - m12, t1, m01 + m10, m02 + m20]),
-        torch.stack([m02 - m20, m01 + m10, t2, m12 + m21]),
-        torch.stack([m10 - m01, m20 + m02, m12 + m21, t3]),
-    ])
-    ts = torch.stack([t0, t1, t2, t3])
-    i = torch.argmax(ts)
-    q = qs[i] * (0.5 / torch.sqrt(torch.clamp(ts[i], min=1e-30)))
-    q = q / torch.linalg.norm(q)
-    return q * torch.where(q[0] < 0, -1.0, 1.0)
-
-
-def matrix_to_rodrigues(R: torch.Tensor) -> torch.Tensor:
-    """Rotation matrix (3, 3) -> axis-angle (3,), cv2.Rodrigues."""
-    q = matrix_to_quaternion(R)
-    w, v = q[0], q[1:]
-    vn = torch.linalg.norm(v)
+        torch.stack([t0, m21 - m12, m02 - m20, m10 - m01], -1),
+        torch.stack([m21 - m12, t1, m01 + m10, m02 + m20], -1),
+        torch.stack([m02 - m20, m01 + m10, t2, m12 + m21], -1),
+        torch.stack([m10 - m01, m20 + m02, m12 + m21, t3], -1),
+    ], -2)
+    ts = torch.stack([t0, t1, t2, t3], -1)
+    i = torch.argmax(ts, dim=-1, keepdim=True)
+    ti = torch.gather(ts, -1, i)
+    q = torch.gather(qs, -2, i[..., None].expand(*i.shape[:-1], 1, 4))[..., 0, :]
+    q = q * (0.5 / torch.sqrt(torch.clamp(ti, min=1e-30)))
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    q = q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+    w, v = q[..., 0], q[..., 1:]
+    vn = torch.linalg.norm(v, dim=-1)
     theta = 2.0 * torch.atan2(vn, w)
-    tiny = vn < 1e-30
-    axis = v / torch.where(tiny, torch.ones_like(vn), vn)
-    return torch.where(tiny, torch.zeros_like(v), axis * theta)
+    tiny = (vn < 1e-30)[..., None]
+    axis = v / torch.where(tiny, torch.ones_like(vn[..., None]), vn[..., None])
+    return torch.where(tiny, torch.zeros_like(v), axis * theta[..., None])
 
 
 def distort_normalized(xy: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
@@ -106,9 +105,10 @@ def undistort_normalized(xy_dist: torch.Tensor, dist: torch.Tensor,
 
 def project_points(object_points: torch.Tensor, rvec: torch.Tensor, tvec: torch.Tensor,
                    K: torch.Tensor, dist: torch.Tensor | None = None) -> torch.Tensor:
-    """3D points (N, 3) -> pixels (N, 2) (cv2.projectPoints)."""
+    """3D points (N, 3) -> pixels (N, 2) (cv2.projectPoints); with V poses,
+    (V, 3) rvecs and tvecs, -> (V, N, 2) (vmap- and jacfwd-safe)."""
     R = rodrigues_to_matrix(rvec)
-    cam = object_points @ R.T + tvec.reshape(1, 3)
+    cam = object_points @ R.transpose(-1, -2) + tvec[..., None, :]
     xy = cam[..., :2] / cam[..., 2:3]
     if dist is not None:
         xy = distort_normalized(xy, dist)

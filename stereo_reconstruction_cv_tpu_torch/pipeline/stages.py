@@ -1,17 +1,24 @@
-"""Stage functions: a raw pair -> two-view geometry -> rectification ->
-disparity -> 3D points -> point-cloud file.
+"""Stage functions: chessboards -> calibration; a raw pair -> two-view
+geometry -> rectification -> disparity -> 3D points -> point-cloud file.
 
-Ports of ``stereo_reconstruction_cv_tpu/pipeline/stages.py``:
-``detect_match``, ``estimate_geometry``, ``rectify_pair``,
-``triangulate_sparse`` (the sparse path; ``detect_match`` and
-``estimate_geometry`` also with ``method="learned"``, the XFeat-style net of
-``models/xfeat.py`` with its shipped weights) and ``disparity``,
-``reconstruct``, ``export_point_cloud`` (PLY; the dense path). Each takes an explicit
-``device`` and runs every step there; asking for CUDA where none is
+Ports of ``stereo_reconstruction_cv_tpu/pipeline/stages.py``: ``calibrate``
+and ``calibrate_stereo_rig`` (chessboard folders), ``detect_match``,
+``estimate_geometry``, ``rectify_pair``, ``triangulate_sparse`` (the sparse
+path; ``detect_match`` and ``estimate_geometry`` also with
+``method="learned"``, the XFeat-style net of ``models/xfeat.py`` with its
+shipped weights) and ``disparity``, ``reconstruct``, ``export_point_cloud``
+(PLY, or the HTML viewer for a .html path; the dense path). Each takes an
+explicit ``device`` and runs every step there; asking for CUDA where none is
 available is an error, never a quiet move to the CPU. Images and disparity
-maps stay on the device as tensors; the sparse stages return the
-reference's dicts of numpy arrays (matrices, correspondences, counts), and
-only the masked points cross to the host for the file.
+maps stay on the device as tensors; the calibration and sparse stages return
+the reference's dicts of numpy arrays (matrices, correspondences, counts),
+and only the masked points cross to the host for the file.
+
+Every public stage records its wall time (its device synchronised at the
+end) and its scalar results into ``utils.profiling.METRICS`` (``cli
+--metrics``). ``calibrate``, ``estimate_geometry``, ``rectify_pair`` and
+``disparity`` take a ``pipeline.cache.StageCache``: a hit returns what the
+miss computed, keyed as the reference keys it.
 
 Geometry runs in float64 (correspondences, F, E, pose, rectification,
 triangulation), the image stages in float32. Random draws come from a
@@ -23,13 +30,21 @@ within the robust estimators' spread, not bit for bit.
 
 from __future__ import annotations
 
+import functools
+import hashlib
+import inspect
 import math
-from typing import Callable, Dict, NamedTuple, Optional
+import os
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from stereo_reconstruction_cv_tpu_torch import config as C
+from stereo_reconstruction_cv_tpu_torch.calib import chessboard as CB
+from stereo_reconstruction_cv_tpu_torch.calib import stereo as SCAL
+from stereo_reconstruction_cv_tpu_torch.calib import zhang as Z
+from stereo_reconstruction_cv_tpu_torch.errors import error_dict
 from stereo_reconstruction_cv_tpu_torch.io import image as IO
 from stereo_reconstruction_cv_tpu_torch.io import ply as PLY
 from stereo_reconstruction_cv_tpu_torch.models import checkpoint as CKPT
@@ -42,6 +57,8 @@ from stereo_reconstruction_cv_tpu_torch.ops import matching as M
 from stereo_reconstruction_cv_tpu_torch.ops import rectify as RC
 from stereo_reconstruction_cv_tpu_torch.ops import refine as RF
 from stereo_reconstruction_cv_tpu_torch.ops import robust as RB
+from stereo_reconstruction_cv_tpu_torch.pipeline.cache import file_fingerprint
+from stereo_reconstruction_cv_tpu_torch.utils.profiling import METRICS, stage_timer
 
 
 def resolve_device(device) -> torch.device:
@@ -61,13 +78,78 @@ def _on(x, device, dtype=None) -> torch.Tensor:
     return torch.as_tensor(x).to(device=device, dtype=dtype)
 
 
-def disparity(imgL, imgR, ndisp: int = 16, mindis: int = 0, device="cuda") -> torch.Tensor:
+def _observed(stage: str):
+    """Record a stage's wall time (its device synchronised at exit) into
+    METRICS, and the scalars of a dict it returns as '<stage>/<key>' (a
+    tuple of numbers as '<stage>/<key>_<i>')."""
+
+    def deco(fn):
+        sig = inspect.signature(fn)
+
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            with stage_timer(stage, device=bound.arguments.get("device")):
+                out = fn(*args, **kwargs)
+            if isinstance(out, dict):
+                for k, v in out.items():
+                    if isinstance(v, (bool, int, float)):
+                        METRICS.record(f"{stage}/{k}", v)
+                    elif isinstance(v, tuple) and all(isinstance(x, (int, float)) for x in v):
+                        for i, x in enumerate(v):
+                            METRICS.record(f"{stage}/{k}_{i}", x)
+            return out
+
+        return wrapper
+
+    return deco
+
+
+def _content_hash(img) -> str:
+    """sha1 of an image's bytes (a tensor's host copy), as the reference
+    hashes its arrays."""
+    if isinstance(img, torch.Tensor):
+        img = img.detach().cpu().numpy()
+    return hashlib.sha1(np.ascontiguousarray(img)).hexdigest()
+
+
+def _pair_cache_key(folder_or_pair, **params) -> Dict:
+    """Cache key of a pair stage: the fingerprints of a folder's img1.jpg and
+    img2.jpg, or the content hashes of an (imL, imR) pair, and every
+    parameter that changes the stage's output."""
+    if isinstance(folder_or_pair, str):
+        fps = []
+        for name in ("img1.jpg", "img2.jpg"):
+            path = os.path.join(folder_or_pair, name)
+            fps.append(file_fingerprint(path) if os.path.exists(path) else name)
+        key = {"pair": fps}
+    else:
+        key = {"pair": [_content_hash(x) for x in folder_or_pair]}
+    key.update(params)
+    return key
+
+
+@_observed("disparity")
+def disparity(imgL, imgR, ndisp: int = 16, mindis: int = 0, cache=None,
+              device="cuda") -> torch.Tensor:
     """compute_disparity_map parity (cell 10): float map, invalid and
-    non-positive pixels zeroed. Images: (H, W) or (H, W, 3) uint8."""
+    non-positive pixels zeroed. Images: (H, W) or (H, W, 3) uint8. cache: a
+    StageCache keyed on the images' content and the SGBM parameters."""
     dev = resolve_device(device)
-    return DP.compute_disparity_map(_on(imgL, dev), _on(imgR, dev), ndisp, mindis)
+    ckey = None
+    if cache is not None:
+        ckey = _pair_cache_key((imgL, imgR), ndisp=ndisp, mindis=mindis)
+        hit = cache.load("disparity", ckey)
+        if hit is not None:
+            return _on(hit["disparity"], dev)
+    disp = DP.compute_disparity_map(_on(imgL, dev), _on(imgR, dev), ndisp, mindis)
+    if cache is not None:
+        cache.save("disparity", ckey, {"disparity": _numpy(disp)})
+    return disp
 
 
+@_observed("reconstruct")
 def reconstruct(disparity_map, Q, device="cuda") -> torch.Tensor:
     """reconstruct_3D parity (cell 11): (H, W, 3) float32 point image."""
     dev = resolve_device(device)
@@ -75,13 +157,11 @@ def reconstruct(disparity_map, Q, device="cuda") -> torch.Tensor:
                                    _on(Q, dev, torch.float32))
 
 
+@_observed("export_point_cloud")
 def export_point_cloud(path: str, points_3d, disparity_map, colors=None,
                        device="cuda") -> int:
-    """Write the valid points (finite, disparity > 0) as PLY; returns N."""
-    if path.endswith(".html"):
-        raise NotImplementedError(
-            "the HTML viewer export is not ported yet; write a .ply file"
-        )
+    """Write the valid points (finite, disparity > 0): the standalone HTML
+    viewer for a .html path, else PLY. Returns their number."""
     dev = resolve_device(device)
     pts = _on(points_3d, dev)
     mask = G.valid_point_mask(pts, _on(disparity_map, dev))
@@ -89,7 +169,117 @@ def export_point_cloud(path: str, points_3d, disparity_map, colors=None,
     c = None
     if colors is not None:
         c = _on(colors, dev)[mask].cpu().numpy()
+    if path.endswith(".html"):
+        from stereo_reconstruction_cv_tpu_torch.io import viewer as VW
+
+        return VW.write_html_viewer(path, p, c)
     return PLY.write_ply(path, p, c)
+
+
+# ---------------------------------------------------------------------------
+# Calibration
+# ---------------------------------------------------------------------------
+
+def _calib_results_tuple(out: Dict):
+    """The reference's return shape (gui.py:75)."""
+    return [
+        ("Camera Matrix", out["K"]),
+        ("Distortion Parameters", out["dist"]),
+        ("Reprojection Error", float(out["mean_error"])),
+    ]
+
+
+@_observed("calibrate")
+def calibrate(folder: str, chessboard: Tuple[int, int] = (9, 7), cache=None,
+              save_corner_annotations: bool = False,
+              annotation_dir: str = "chessboard_corners", device="cuda") -> Dict:
+    """cam_calib parity (gui.py:27-75): find the chessboard in each *.jpg of
+    `folder`, then Zhang + LM over the views where it was found. Returns K,
+    dist, rvecs, tvecs, rms, mean_error (the reference's metric),
+    per_view_error and num_images as numpy and numbers, and "results" in
+    the reference's format; an error dict for no images or fewer than 3
+    boards. cache: a StageCache keyed on the files' fingerprints.
+    save_corner_annotations writes each found board's corners drawn on its
+    image into annotation_dir."""
+    files = IO.glob_calibration_images(folder)
+    if not files:
+        return error_dict(f"no *.jpg calibration images in {folder!r}", "data")
+    dev = resolve_device(device)
+    key = {"files": [file_fingerprint(f) for f in files]}
+    if cache is not None:
+        hit = cache.load("calibrate", key)
+        if hit is not None:
+            out = dict(hit)
+            # scalars come back as 0-d arrays
+            for k in ("rms", "mean_error"):
+                out[k] = float(out[k])
+            out["num_images"] = int(out["num_images"])
+            out["results"] = _calib_results_tuple(out)
+            return out
+    cols, rows = chessboard
+    pts, size = [], None
+    for f in files:
+        gray = IO.load_gray(f)
+        found, corners = CB.find_chessboard_corners(_on(gray, dev), cols, rows)
+        if not found:
+            continue
+        pts.append(corners)
+        size = size or (gray.shape[1], gray.shape[0])
+        if save_corner_annotations:
+            from stereo_reconstruction_cv_tpu_torch.utils import draw as DR
+
+            os.makedirs(annotation_dir, exist_ok=True)
+            IO.save_image(os.path.join(annotation_dir, os.path.basename(f)),
+                          DR.draw_keypoints(gray, _numpy(corners)))
+    if len(pts) < 3:
+        return error_dict(f"chessboard found in only {len(pts)} images", "calibration")
+    res = Z.calibrate_camera(Z.build_object_points(cols, rows, device=dev), torch.stack(pts), size)
+    out = {
+        "K": _numpy(res.K),
+        "dist": _numpy(res.dist),
+        "rvecs": _numpy(res.rvecs),
+        "tvecs": _numpy(res.tvecs),
+        "rms": float(res.rms),
+        "mean_error": float(res.mean_error),
+        "per_view_error": _numpy(res.per_view_error),
+        "num_images": len(pts),
+    }
+    if cache is not None:
+        cache.save("calibrate", key, out)
+    out["results"] = _calib_results_tuple(out)
+    return out
+
+
+@_observed("calibrate_stereo_rig")
+def calibrate_stereo_rig(folder1: str, folder2: str, chessboard: Tuple[int, int] = (9, 7),
+                         device="cuda") -> Dict:
+    """Two-camera rig calibration from synchronised chessboard folders (the
+    images paired by sorted name): the views where both cameras find the
+    board calibrate K1, dist1, K2, dist2 and the rig's R, T jointly.
+    Returns them as numpy with rms and num_pairs; an error dict for unequal
+    or empty folders or fewer than 3 pairs."""
+    f1 = IO.glob_calibration_images(folder1)
+    f2 = IO.glob_calibration_images(folder2)
+    if not f1 or not f2 or len(f1) != len(f2):
+        return error_dict(f"need matching image counts ({len(f1)} vs {len(f2)})", "data")
+    dev = resolve_device(device)
+    cols, rows = chessboard
+    p1, p2, size = [], [], None
+    for a, b in zip(f1, f2):
+        g1, g2 = IO.load_gray(a), IO.load_gray(b)
+        size = (g1.shape[1], g1.shape[0])
+        ok1, c1 = CB.find_chessboard_corners(_on(g1, dev), cols, rows)
+        ok2, c2 = CB.find_chessboard_corners(_on(g2, dev), cols, rows)
+        if ok1 and ok2:
+            p1.append(c1)
+            p2.append(c2)
+    if len(p1) < 3:
+        return error_dict(f"board found in both views for only {len(p1)} pairs", "calibration")
+    res = SCAL.calibrate_stereo(Z.build_object_points(cols, rows, device=dev), torch.stack(p1),
+                                torch.stack(p2), size)
+    out = {k: _numpy(getattr(res, k)) for k in ("K1", "dist1", "K2", "dist2", "R", "T")}
+    out.update(rms=float(res.rms), num_pairs=len(p1))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -102,11 +292,9 @@ def default_camera_matrix(cfg: C.RectifyConfig = C.DEFAULT.rectify) -> np.ndarra
                      [0, 0, 1.0]])
 
 
-def _refuse_unported(method: str = "classical", cache=None) -> None:
+def _check_method(method: str) -> None:
     if method not in ("classical", "learned"):
         raise ValueError(f"unknown matching method {method!r}")
-    if cache is not None:
-        raise NotImplementedError("the stage cache is not ported yet (ROADMAP A.15)")
 
 
 def _load_pair(folder_or_pair, dev):
@@ -156,6 +344,7 @@ def _learned_features_pair(imL: torch.Tensor, imR: torch.Tensor, max_keypoints: 
                           max_keypoints)
 
 
+@_observed("detect_match")
 def detect_match(folder_or_pair, contrast_threshold: float = 0.04, ratio: float = 0.75,
                  max_keypoints: int = 2048, method: str = "classical",
                  model_checkpoint: Optional[str] = None, with_visualizations: bool = False,
@@ -165,7 +354,7 @@ def detect_match(folder_or_pair, contrast_threshold: float = 0.04, ratio: float 
     path), or with method="learned" the XFeat net (model_checkpoint, an .npz
     export; None: the shipped weights) with mutual nearest neighbours of
     cosine similarity >= 0.5."""
-    _refuse_unported(method)
+    _check_method(method)
     dev = resolve_device(device)
     imL, imR = _load_pair(folder_or_pair, dev)
     if method == "learned":
@@ -298,6 +487,7 @@ def _geometry_dict(g: _Geometry, baseline: float) -> Dict:
     }
 
 
+@_observed("estimate_geometry")
 def estimate_geometry(folder_or_pair, baseline: float = 0.1,
                       camera_matrix: Optional[np.ndarray] = None, seed: int = 0,
                       pipeline_cfg: C.PipelineConfig = C.DEFAULT, method: str = "classical",
@@ -311,15 +501,37 @@ def estimate_geometry(folder_or_pair, baseline: float = 0.1,
     Vector" (unit norm), F, counts, correspondences, E's inlier mask) as
     numpy. on_stage, when given, is called with "detect", "match", ("LK" on
     the learned path,) "F", "E" and "pose" as each ends (a timing hook; it
-    may synchronise the device)."""
-    _refuse_unported(method, cache)
+    may synchronise the device). cache: a StageCache keyed on the pair, K,
+    seed, method, checkpoint and baseline."""
+    _check_method(method)
     dev = resolve_device(device)
+    ckey = None
+    if cache is not None:
+        K = default_camera_matrix() if camera_matrix is None else np.asarray(camera_matrix)
+        ckey = _pair_cache_key(folder_or_pair, K=K.tolist(), seed=seed, method=method,
+                               checkpoint=checkpoint, baseline=baseline)
+        hit = cache.load("geometry", ckey)
+        if hit is not None:
+            return _geometry_from_cache(hit)
     imL, imR = _load_pair(folder_or_pair, dev)
     g = _geometry(imL, imR, _camera(camera_matrix, dev), seed, pipeline_cfg, on_stage or _no_mark,
                   method, checkpoint)
-    return _geometry_dict(g, baseline)
+    out = _geometry_dict(g, baseline)
+    if cache is not None:
+        cache.save("geometry", ckey, out)
+    return out
 
 
+def _geometry_from_cache(hit: Dict) -> Dict:
+    """A cached geometry dict with its scalars back to Python numbers."""
+    out = dict(hit)
+    out["baseline"] = float(out["baseline"])
+    for k in ("num_matches", "num_inliers_F", "num_inliers_E"):
+        out[k] = int(out[k])
+    return out
+
+
+@_observed("rectify_pair")
 def rectify_pair(folder_or_pair, baseline: float = 0.1,
                  camera_matrix: Optional[np.ndarray] = None, dist: Optional[np.ndarray] = None,
                  alpha: float = 1.0, seed: int = 0, with_visualizations: bool = True,
@@ -331,9 +543,26 @@ def rectify_pair(folder_or_pair, baseline: float = 0.1,
     The rectified images ("left_rectified", "right_rectified") are uint8
     tensors on the device, ready for the dense stages; R1, R2, P1, P2, Q,
     F_rectified and the nested "geometry" dict are numpy. dist (5
-    coefficients) undistorts in the remap."""
-    _refuse_unported(cache=cache)
+    coefficients) undistorts in the remap. cache: a StageCache keyed on the
+    pair, K, dist, alpha, seed, baseline and the visualisation flag; a hit
+    puts the rectified images back on the device."""
     dev = resolve_device(device)
+    ckey = None
+    if cache is not None:
+        K = default_camera_matrix() if camera_matrix is None else np.asarray(camera_matrix)
+        ckey = _pair_cache_key(folder_or_pair, K=K.tolist(),
+                               dist=None if dist is None else np.asarray(dist).tolist(),
+                               alpha=alpha, seed=seed, baseline=baseline,
+                               vis=bool(with_visualizations))
+        hit = cache.load("rectify", ckey)
+        if hit is not None:
+            out = {k: v for k, v in hit.items() if not k.startswith("geo ")}
+            out["geometry"] = _geometry_from_cache(
+                {k[len("geo "):]: v for k, v in hit.items() if k.startswith("geo ")})
+            out["epiline_mean_abs_slope"] = float(out["epiline_mean_abs_slope"])
+            for k in ("left_rectified", "right_rectified"):
+                out[k] = _on(out[k], dev)
+            return out
     imL, imR = _load_pair(folder_or_pair, dev)
     K = _camera(camera_matrix, dev)
     d = None if dist is None else _on(np.asarray(dist, np.float64).reshape(-1), dev, torch.float64)
@@ -373,9 +602,15 @@ def rectify_pair(folder_or_pair, baseline: float = 0.1,
         vis3, vis4 = DR.draw_epilines(lr, rrt, after, p1n, p2n)
         out.update({"Left Epilines (before)": vis1, "Right Points (before)": vis2,
                     "Left Epilines (after)": vis3, "Right Points (after)": vis4})
+    if cache is not None:
+        flat = {k: _numpy(v) if isinstance(v, torch.Tensor) else v
+                for k, v in out.items() if k != "geometry"}
+        flat.update({f"geo {k}": v for k, v in geo.items()})
+        cache.save("rectify", ckey, flat)
     return out
 
 
+@_observed("triangulate_sparse")
 def triangulate_sparse(folder_or_pair, camera_matrix: Optional[np.ndarray] = None,
                        baseline: float = 0.1, seed: int = 0,
                        pipeline_cfg: C.PipelineConfig = C.DEFAULT, device="cuda") -> Dict:

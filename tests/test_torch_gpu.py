@@ -19,7 +19,11 @@ and the pose of a rendered scene; the robust fits index no CUDA tensor with
 a boolean mask (a host sync). The learned matcher is held to its CPU run
 under PyTorch's default cuDNN flags: the net's outputs, detection with and
 without corner refinement (and twice on the card), the corner refinement
-against float64 and the LK refinement of matches.
+against float64 and the LK refinement of matches. Calibration (torch ops,
+no kernel of its own) is held to its CPU run at chip_smoke.py phase 9's
+bounds: the saddle response, the candidates, the corners of rendered boards
+(1e-3 px), homographies, Zhang's K and poses, calibrate_camera and
+calibrate_stereo (1e-8 relative); its LM makes no host sync.
 """
 
 import importlib.util
@@ -932,3 +936,112 @@ def test_xfeat_refinements_on_the_card(dev, H, W):
     assert int(w.sum()) > 50 and int(((good != good_h) & w).sum()) <= 0.005 * int(w.sum())
     both = good & good_h & w
     assert float((q.cpu() - qh).abs().amax(-1)[both].max()) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# Calibration on the card against the CPU (chip_smoke.py phase 9's bounds)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def calib_set():
+    """chip_smoke.py's calibration set at 1920x1080, 3 poses x 2 cameras,
+    rendered on the card (None without one)."""
+    if not torch.cuda.is_available():
+        return None
+    return _smoke().calibration_set(torch, torch.device("cuda"), H=1080, W=1920, n=3)
+
+
+def test_chessboard_detection_on_the_card_matches_the_cpu(dev, calib_set):
+    """The saddle response within 1e-5 of its maximum, the same candidates
+    from the same response, and every view's corners within 1e-3 px."""
+    from stereo_reconstruction_cv_tpu_torch.calib import chessboard as CB
+
+    img = calib_set["views"][0][0]
+    small = img.to(torch.float32).reshape(270, 4, 480, 4).mean((1, 3))
+    rc, rh = CB.saddle_response(small), CB.saddle_response(small.cpu())
+    assert float((rc.cpu() - rh).abs().max()) <= 1e-5 * float(rh.max())
+    for a, b in zip(CB.nms_candidates(rh.to(dev), 256, 4), CB.nms_candidates(rh, 256, 4)):
+        assert torch.equal(a.cpu(), b)
+    for views in calib_set["views"]:
+        for img in views:
+            ok, c = CB.find_chessboard_corners(img)
+            ok_h, ch = CB.find_chessboard_corners(img.cpu())
+            assert ok and ok_h and c.device.type == "cuda"
+            assert float((c.cpu() - ch).abs().max()) <= 1e-3
+    img = calib_set["views"][0][0]
+    starts = calib_set["truth"][0][0].float() + 0.7
+    sc = CB.corner_subpix(img, starts.to(dev))
+    sh = CB.corner_subpix(img.cpu(), starts)
+    assert float((sc.cpu() - sh).abs().max()) <= 1e-3
+
+
+def _calib_views(rng, V, noise=0.3):
+    """V noisy views (V, 63, 2) of the 9 x 7 grid through K_4K and phase 9's
+    distortion, with camera 2 of phase 7's rig; float64 CPU tensors."""
+    from stereo_reconstruction_cv_tpu_torch.calib import zhang as Z
+
+    smoke = _smoke()
+    K = torch.from_numpy(smoke.K_4K)
+    dist = torch.tensor(smoke.CALIB_DIST, dtype=torch.float64)
+    obj = Z.build_object_points(9, 7, 0.03)
+    poses = smoke.board_poses(torch, V, smoke.K_4K, 3840, 2160)
+    R_rig, T_rig = smoke.rotation_about(smoke.SCENE_AXIS, smoke.SCENE_DEG), np.array(smoke.SCENE_T)
+    out = []
+    for cam in (0, 1):
+        rv = torch.stack([G.matrix_to_rodrigues(torch.from_numpy(R_rig @ R if cam else R))
+                          for R, _ in poses])
+        tv = torch.from_numpy(np.stack([R_rig @ t + T_rig if cam else t for _, t in poses]))
+        img = G.project_points(obj, rv, tv, K, dist)
+        out.append(img + torch.from_numpy(rng.normal(size=tuple(img.shape)) * noise))
+    return obj, out[0], out[1]
+
+
+def test_zhang_and_lm_on_the_card_match_the_cpu(dev):
+    """Homographies, Zhang's K, the poses: 1e-8 relative; calibrate_camera's
+    K 1e-8 relative, its errors 1e-8; calibrate_stereo's R and T 1e-8."""
+    from stereo_reconstruction_cv_tpu_torch.calib import stereo as ST
+    from stereo_reconstruction_cv_tpu_torch.calib import zhang as Z
+
+    obj, c1, c2 = _calib_views(np.random.default_rng(11), 10)
+    Hh = Z.homography_dlt(obj[:, :2], c1)
+    Hc = Z.homography_dlt(obj[:, :2].to(dev), c1.to(dev))
+    assert float((Hc.cpu() - Hh).abs().max() / Hh.abs().max()) <= 1e-8
+    Kh = Z.zhang_intrinsics(Hh, (3840, 2160))
+    Kc = Z.zhang_intrinsics(Hc, (3840, 2160))
+    assert float((Kc.cpu() - Kh).abs().max() / Kh.abs().max()) <= 1e-8
+    for a, b in zip(Z.extrinsics_from_homography(Hc, Kc), Z.extrinsics_from_homography(Hh, Kh)):
+        assert float((a.cpu() - b).abs().max() / b.abs().max()) <= 1e-8
+    img = torch.cat([c1, c2])
+    rh = Z.calibrate_camera(obj, img, (3840, 2160))
+    rc = Z.calibrate_camera(obj.to(dev), img.to(dev), (3840, 2160))
+    assert rc.K.device.type == "cuda"
+    assert float((rc.K.cpu() - rh.K).abs().max() / rh.K.abs().max()) <= 1e-8
+    for k in ("rms", "mean_error"):
+        assert abs(float(getattr(rc, k)) / float(getattr(rh, k)) - 1) <= 1e-8
+    sh = ST.calibrate_stereo(obj, c1, c2, (3840, 2160))
+    sc = ST.calibrate_stereo(obj.to(dev), c1.to(dev), c2.to(dev), (3840, 2160))
+    for k in ("R", "T", "K1", "K2"):
+        a, b = getattr(sc, k).cpu(), getattr(sh, k)
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-8, k
+
+
+def test_lm_makes_no_host_sync_on_the_card(dev):
+    """The LM steps run under CUDA's sync debug mode "error": no step reads
+    a value back to the host."""
+    from stereo_reconstruction_cv_tpu_torch.calib import zhang as Z
+
+    obj, c1, _ = _calib_views(np.random.default_rng(12), 6)
+    obj, img = obj.to(dev), c1.to(dev)
+    Hs = Z.homography_dlt(obj[:, :2], img)
+    K0 = Z.zhang_intrinsics(Hs, (3840, 2160))
+    rv, tv = Z.extrinsics_from_homography(Hs, K0)
+    theta0 = Z._pack(K0, torch.zeros(5, dtype=torch.float64, device=dev), rv, tv)
+    res_fn = lambda th: Z._residuals(th, obj, img)  # noqa: E731
+    Z.levenberg_marquardt(res_fn, theta0, 1)  # warm: first-use set-up may sync
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        theta = Z.levenberg_marquardt(res_fn, theta0, 5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(theta).all())

@@ -11,6 +11,7 @@ importing the port pulls in neither jax nor PIL.
 import ast
 import dataclasses
 import importlib.util
+import json
 import os
 import pathlib
 import subprocess
@@ -32,6 +33,7 @@ from stereo_reconstruction_cv_tpu.pipeline import stages as RS
 from stereo_reconstruction_cv_tpu_torch import cli, convert, native
 from stereo_reconstruction_cv_tpu_torch import config as port_config
 from stereo_reconstruction_cv_tpu_torch.io import ply as port_ply
+from stereo_reconstruction_cv_tpu_torch.io import viewer as VW
 from stereo_reconstruction_cv_tpu_torch.ops import disparity as DP
 from stereo_reconstruction_cv_tpu_torch.ops import rectify as RC
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import cost as CK
@@ -40,6 +42,7 @@ from stereo_reconstruction_cv_tpu_torch.ops.cuda import op_chain as OC
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import sgm as SK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import speckle as SPK
 from stereo_reconstruction_cv_tpu_torch.pipeline import stages
+from stereo_reconstruction_cv_tpu_torch.utils.profiling import METRICS
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 K_4K = np.array([[2253.71, 0.0, 1929.69], [0.0, 2244.72, 1057.63], [0.0, 0.0, 1.0]])
@@ -216,6 +219,10 @@ def test_port_imports_no_jax():
         "import stereo_reconstruction_cv_tpu_torch.utils.draw\n"
         "import stereo_reconstruction_cv_tpu_torch.models.xfeat, stereo_reconstruction_cv_tpu_torch.models.checkpoint\n"
         "import stereo_reconstruction_cv_tpu_torch.calib.chessboard, stereo_reconstruction_cv_tpu_torch.ops.refine\n"
+        "import stereo_reconstruction_cv_tpu_torch.calib.zhang, stereo_reconstruction_cv_tpu_torch.calib.stereo\n"
+        "import stereo_reconstruction_cv_tpu_torch.pipeline.cache, stereo_reconstruction_cv_tpu_torch.utils.profiling\n"
+        "import stereo_reconstruction_cv_tpu_torch.utils.capture, stereo_reconstruction_cv_tpu_torch.io.viewer\n"
+        "import stereo_reconstruction_cv_tpu_torch.io.report, stereo_reconstruction_cv_tpu_torch.tools.calib_4k\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'stereo_reconstruction_cv_tpu' not in sys.modules\n"
         "assert 'PIL' not in sys.modules\n"
@@ -445,17 +452,46 @@ def test_cli_reconstruct_from_a_raw_pair(raw_pair, tmp_path, one_thread):
     assert 2.4 < np.median(pts[:, 2]) < 5.1
 
 
-def test_unported_options_are_refused_with_their_queue_item(raw_pair, tmp_path, capsys):
-    folder, _, _ = raw_pair
-    for argv, item in ((["geometry", folder, "--cache"], "A.15"),
-                       (["rectify", folder, "--cache", str(tmp_path)], "A.15"),
-                       (["triangulate", folder, "--viewer", "v.html"], "A.15"),
-                       (["reconstruct", folder, "--viewer", "v.html"], "A.15"),
-                       (["--metrics", "m.json", "match", folder], "A.15")):
-        assert cli.main(argv + ["--device", "cpu"]) == 2, argv
-        assert item in capsys.readouterr().err, argv
-    with pytest.raises(NotImplementedError, match="A.15"):
-        stages.rectify_pair(folder, cache=str(tmp_path), device="cpu")
+def test_unported_options_are_refused_with_their_queue_item(raw_pair, tmp_path, capsys,
+                                                           monkeypatch, one_thread):
+    """The options once refused with exit 2 and their queue item (--cache,
+    --viewer, --metrics; ROADMAP A.15) now run on the same verbs: the cache
+    misses then hits with the same output, the viewer holds the cloud's
+    points, the metrics file the verb's stages."""
+    folder, calib, _ = raw_pair
+    monkeypatch.chdir(tmp_path)  # --cache without DIR writes ./.stereo_tpu_cache
+    outs = []
+    for _ in range(2):
+        assert cli.main(["geometry", folder, "--cache", "--device", "cpu"]) == 0
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] and "E inliers" in outs[0]
+    assert [f.split("-")[0] for f in os.listdir(tmp_path / ".stereo_tpu_cache")] == ["geometry"]
+    rect = []
+    for i in range(2):
+        argv = ["rectify", folder, "--cache", str(tmp_path / "c"), "--device", "cpu",
+                "--outdir", str(tmp_path / f"r{i}")]
+        assert cli.main(argv) == 0
+        with np.load(tmp_path / f"r{i}" / "rectification.npz") as z:
+            rect.append({k: z[k] for k in z.files})
+    assert all(np.array_equal(rect[0][k], rect[1][k]) for k in rect[0])
+    assert [f.split("-")[0] for f in os.listdir(tmp_path / "c")] == ["rectify"]
+    base = str(np.linalg.norm(RAW_T))
+    assert cli.main(["triangulate", folder, "--calibration", calib, "--baseline", base, "--viewer",
+                     "v.html", "--device", "cpu", "--output", "s.ply"]) == 0
+    pts, _ = PLY.read_ply("s.ply")
+    np.testing.assert_array_equal(VW.read_html_viewer("v.html")[0], pts)
+    assert cli.main(["reconstruct", folder, "--calibration", calib, "--baseline", base, "--ndisp",
+                     "32", "--viewer", "d.html", "--device", "cpu", "--output", "d.ply"]) == 0
+    pts, colors = PLY.read_ply("d.ply")
+    vp, vc = VW.read_html_viewer("d.html")
+    np.testing.assert_array_equal(vp, pts)
+    np.testing.assert_array_equal(vc, colors)
+    capsys.readouterr()
+    METRICS.reset()
+    assert cli.main(["--metrics", "m.json", "match", folder, "--device", "cpu"]) == 0
+    assert "metrics -> m.json" in capsys.readouterr().out
+    m = json.loads((tmp_path / "m.json").read_text())
+    assert m["time/detect_match_calls"] == 1 and m["detect_match/num_good_matches"] > 100
 
 
 def test_cli_match_and_geometry_learned(raw_pair, tmp_path, capsys, one_thread):
