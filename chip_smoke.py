@@ -93,15 +93,26 @@ Phases:
                LM's K against the CPU; then config 3's device chain on
                phase 5's pair with the calibrated K, its map against the
                anchor K's scaled by the ratio of their P1[0, 0]
-Each main path of phases 4, 4b, 5, 7, 8 and 9 (config 2 with device, host and
-no speckle, the 720p CLI chain, the two tools, the 4K pair -> PLY, config
-3's chain, the raw pair's dense chain, config 4's step, learned geometry,
-the calibration and config 3's chain at the anchor and the calibrated K)
-runs with the launch counts zeroed just before it and read just after:
-every kernel it should run must have launched in it, a path with the host
-speckle must launch no speckle kernel, and the learned paths and the
-calibration none. The kernels line sums the paths'
-counts; each kernel's bound there is the larger of its bytes over the card's
+  10. bench    the benchmark suite, benchmarks.main([2, 1, 4, 3, 5]) in this
+               process at full size (the bench verb): every BASELINE
+               metric's line, finite, with the card and the timed runs'
+               spread, the headline last; config 5's 8 decodes and 8
+               host -> device copies inside its window, its nvJPEG frames
+               within JPEG_MIN_PSNR_DB of the rendered ones; then
+               stream_reconstruct on three 4K JPEG pairs, its clouds equal
+               to sgbm_disparity -> reproject_image_to_3d on the same
+               decoded frames (bit-equal, or within F32_RTOL)
+Each main path of phases 4, 4b, 5, 7, 8, 9 and 10 (config 2 with device,
+host and no speckle, the 720p CLI chain, the two tools, the 4K pair -> PLY,
+config 3's chain, the raw pair's dense chain, config 4's step, learned
+geometry, the calibration and config 3's chain at the anchor and the
+calibrated K, each bench config: 1 the cost kernel alone, 2 and 3 the dense
+and speckle kernels, 4 none, 5 the dense kernels and no speckle one; the
+streamed clouds) runs with the launch counts zeroed just before it and read
+just after: every kernel it should run must have launched in it, a path
+with the host speckle must launch no speckle kernel, and the learned paths
+and the calibration none. The kernels line sums the paths' counts; each
+kernel's bound there is the larger of its bytes over the card's
 memory rate and its operations over its peak rate (PEAK_BYTES_S,
 PEAK_OPS_S), at the inputs its time was taken on. To compare another
 checkout (the parent commit, say) with this one on the same card, run
@@ -127,14 +138,6 @@ import time
 import traceback
 
 import numpy as np
-
-SEED = 0
-# Reference calibration anchor of the 4K rig and its 140 mm baseline.
-K_4K = np.array([[2253.71, 0.0, 1929.69], [0.0, 2244.72, 1057.63], [0.0, 0.0, 1.0]])
-BASELINE_M = 0.140
-# Phase 7's rig: x2 = R x1 + T, R SCENE_DEG degrees about SCENE_AXIS.
-SCENE_AXIS, SCENE_DEG = (0.3, 1.0, 0.2), 1.2
-SCENE_T = (-BASELINE_M, 0.004, -0.003)
 
 KERNELS = {
     "cost_volume": ("stereo_reconstruction_cv_tpu_torch/csrc/cost_volume.cu",
@@ -237,123 +240,6 @@ def serpentine_map(rng, H: int, W: int, turns: int):
             valid[y + thick:y + pitch, (W - 16, 8)[k % 2]:(W - 8, 16)[k % 2]] = True
     disp = 30.0 + rng.uniform(-1.0, 1.0, (H, W))
     return np.where(valid, disp, 0.0).astype(np.float32), valid
-
-
-# The synthetic scene of phase 7: planes in camera 1's frame (x right, y down,
-# z forward, metres), each (centre, normal, half extents along its two in-plane
-# axes; None for an unbounded plane). Depths 2.5-5 m, no two parallel, so no
-# single homography explains the pair.
-SCENE_PLANES = (
-    ((0.0, 0.0, 5.0), (0.12, -0.08, -1.0), None),
-    ((-0.9, -0.25, 2.9), (0.35, 0.1, -1.0), (1.1, 0.8)),
-    ((1.0, 0.35, 3.7), (-0.3, 0.2, -1.0), (1.3, 0.9)),
-    ((0.1, 0.9, 4.2), (0.05, 0.6, -1.0), (1.5, 0.6)),
-)
-
-
-def _plane_frames(torch, dtype, device):
-    """(centres (P, 3), unit normals (P, 3), in-plane axes (P, 2, 3),
-    half extents (P, 2), inf where unbounded)."""
-    c = torch.tensor([p[0] for p in SCENE_PLANES], dtype=dtype, device=device)
-    n = torch.tensor([p[1] for p in SCENE_PLANES], dtype=dtype, device=device)
-    n = n / torch.linalg.norm(n, dim=-1, keepdim=True)
-    up = torch.tensor([0.0, 1.0, 0.0], dtype=dtype, device=device).expand_as(n)
-    e1 = torch.linalg.cross(up, n)
-    e1 = e1 / torch.linalg.norm(e1, dim=-1, keepdim=True)
-    e2 = torch.linalg.cross(n, e1)
-    ext = torch.tensor([p[2] if p[2] is not None else (math.inf, math.inf) for p in SCENE_PLANES],
-                       dtype=dtype, device=device)
-    return c, n, torch.stack([e1, e2], dim=1), ext
-
-
-def scene_hit(torch, origin, dirs):
-    """First hit of rays origin + t dirs (dirs (..., 3)) with the scene:
-    (t (...,), plane index (...,), in-plane coordinates (..., 2))."""
-    c, n, axes, ext = _plane_frames(torch, dirs.dtype, dirs.device)
-    o = torch.as_tensor(origin, dtype=dirs.dtype, device=dirs.device)
-    denom = dirs @ n.T                                   # (..., P)
-    t = ((c - o) * n).sum(-1) / denom                    # (..., P)
-    hit = o + t[..., None] * dirs[..., None, :]          # (..., P, 3)
-    ab = torch.einsum("...pk,pjk->...pj", hit - c, axes)  # (..., P, 2)
-    inside = (ab.abs() <= ext).all(-1) & (t > 0)
-    t = torch.where(inside, t, torch.full_like(t, math.inf))
-    tmin, idx = t.min(dim=-1)
-    ab = torch.gather(ab, -2, idx[..., None, None].expand(*idx.shape, 1, 2))[..., 0, :]
-    return tmin, idx, ab
-
-
-def _hash01(torch, i, j, salt):
-    """Uniform [0, 1) per integer lattice point (int64 i, j >= 0), the same
-    on every device: 31-bit multiply-xorshift rounds, no overflow."""
-    m = 0x7FFFFFFF
-    h = (i * 0x2545F491 + j * 0x6C8E9CF5 + salt * 0x1B873593) & m
-    for k in (0x5BD1E995, 0x27D4EB2F, 0x165667B1):
-        h = ((h ^ (h >> 15)) * k) & m
-    h = h ^ (h >> 13)
-    return (h & 0xFFFFFF).to(torch.float32) / float(1 << 24)
-
-
-def _value_noise(torch, a, b, salt):
-    """Bilinear value noise at lattice coordinates (a, b) (float64)."""
-    a = a + 4096.0
-    b = b + 4096.0
-    i0, j0 = torch.floor(a), torch.floor(b)
-    fa, fb = (a - i0).to(torch.float32), (b - j0).to(torch.float32)
-    i0, j0 = i0.to(torch.int64), j0.to(torch.int64)
-    v00 = _hash01(torch, i0, j0, salt)
-    v10 = _hash01(torch, i0 + 1, j0, salt)
-    v01 = _hash01(torch, i0, j0 + 1, salt)
-    v11 = _hash01(torch, i0 + 1, j0 + 1, salt)
-    return (v00 * (1 - fa) * (1 - fb) + v10 * fa * (1 - fb)
-            + v01 * (1 - fa) * fb + v11 * fa * fb)
-
-
-def render_view(torch, K, R, C, H, W, texel, seed, device):
-    """(H, W) uint8 view of the scene from a camera with intrinsics K,
-    rotation R (world -> camera) and centre C, point-sampled: textures of
-    value noise at lattice pitches texel x (1, 3, 9, 27) metres."""
-    dt = torch.float64
-    Kt = torch.as_tensor(K, dtype=dt, device=device)
-    Rt = torch.as_tensor(R, dtype=dt, device=device)
-    v, u = torch.meshgrid(torch.arange(H, dtype=dt, device=device),
-                          torch.arange(W, dtype=dt, device=device), indexing="ij")
-    pix = torch.stack([u, v, torch.ones_like(u)], dim=-1)
-    dirs = pix @ torch.linalg.inv(Kt).T @ Rt          # camera rays in the world frame
-    _, idx, ab = scene_hit(torch, C, dirs)
-    img = torch.zeros((H, W), dtype=torch.float32, device=device)
-    for level, weight in enumerate((0.35, 0.3, 0.2, 0.15)):
-        pitch = texel * 3.0 ** level
-        img += weight * _value_noise(torch, ab[..., 0] / pitch, ab[..., 1] / pitch,
-                                     idx + 16 * level + 64 * seed)
-    return torch.round(255.0 * (0.1 + 0.8 * img)).clamp(0, 255).to(torch.uint8)
-
-
-def render_pair(torch, K, R, T, H, W, seed=0, device="cpu"):
-    """Left and right (H, W) uint8 views of the scene for the rig x2 = R x1 + T
-    (camera 1 at the origin), texel about 1.5 px at 3 m."""
-    K = np.asarray(K, np.float64)
-    texel = 1.5 * 3.0 / K[0, 0]
-    C2 = -np.asarray(R, np.float64).T @ np.asarray(T, np.float64).reshape(3)
-    left = render_view(torch, K, np.eye(3), np.zeros(3), H, W, texel, seed, device)
-    right = render_view(torch, K, R, C2, H, W, texel, seed, device)
-    return left, right
-
-
-def rotation_about(axis, degrees):
-    """Rotation matrix of `degrees` about the unit direction of `axis`."""
-    a = np.asarray(axis, np.float64)
-    a = a / np.linalg.norm(a)
-    th = np.deg2rad(degrees)
-    Kx = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
-    return np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx
-
-
-def pose_errors(R, t, R_true, T_true):
-    """(rotation error, translation direction error) of a pose, in degrees."""
-    r = np.degrees(np.arccos(np.clip((np.trace(R @ R_true.T) - 1) / 2, -1, 1)))
-    t = np.asarray(t, np.float64).ravel()
-    c = t @ T_true / (np.linalg.norm(t) * np.linalg.norm(T_true))
-    return float(r), float(np.degrees(np.arccos(np.clip(c, -1, 1))))
 
 
 def same_features(torch, fh, fc):
@@ -523,6 +409,8 @@ def learned_phase(torch, dev, host, no_kernels, pair4k):
     from stereo_reconstruction_cv_tpu_torch.ops import matching as MT
     from stereo_reconstruction_cv_tpu_torch.ops import rectify as RC
     from stereo_reconstruction_cv_tpu_torch.ops.refine import refine_matches_lk
+    from stereo_reconstruction_cv_tpu_torch.utils.synth import (BASELINE_M, K_4K, SEED, pose_errors,
+                                                              rectified_rig, render_pair, scene_hit)
     from stereo_reconstruction_cv_tpu_torch.pipeline import stages
 
     sync = torch.cuda.synchronize
@@ -551,7 +439,7 @@ def learned_phase(torch, dev, host, no_kernels, pair4k):
     K = K_4K.copy()
     K[:2] *= W / 3840.0
     T = np.array([-BASELINE_M, 0.0, 0.0])
-    l, r = render_pair(torch, K, np.eye(3), T, H, W, seed=SEED, device=dev)
+    l, r = render_pair(K, np.eye(3), T, H, W, seed=SEED, device=dev)
     lh, rh = l.to(host), r.to(host)
     x = torch.stack([l, r]).to(torch.float32) / 255.0
     out, out_h = model(x), model_h(x.to(host))
@@ -608,8 +496,7 @@ def learned_phase(torch, dev, host, no_kernels, pair4k):
         raise AssertionError(f"(c) refine_matches_lk: {lk_err} px, {flips} flips")
 
     # (d) config 4's step, as benchmarks.py:438-446 runs it
-    rect = RC.stereo_rectify(torch.tensor(K), None, torch.tensor(K), None, (W, H),
-                             torch.eye(3, dtype=torch.float64), torch.tensor(T), alpha=0.0)
+    _, rect = rectified_rig((W, H))
     P1, P2 = rect.P1.to(dev, torch.float32), rect.P2.to(dev, torch.float32)
 
     def step():
@@ -671,7 +558,7 @@ def learned_phase(torch, dev, host, no_kernels, pair4k):
     def depth_shares(f1, ok, pts, dev_):
         uv = torch.cat([f1.keypoints.double(), torch.ones_like(f1.keypoints[:, :1]).double()], -1)
         dirs = uv @ torch.linalg.inv(torch.tensor(K, device=dev_)).T   # z = 1: t is the depth
-        z_true, _, _ = scene_hit(torch, (0.0, 0.0, 0.0), dirs)
+        z_true, _, _ = scene_hit((0.0, 0.0, 0.0), dirs)
         rel = ((pts[:, 2].double() / pts[:, 3].double() - z_true).abs() / z_true)[ok]
         n = max(1, rel.numel())
         return n, float((rel < 0.02).sum().item()) / n, float((rel < 0.1).sum().item()) / n
@@ -761,7 +648,7 @@ def learned_phase(torch, dev, host, no_kernels, pair4k):
     # fits on the same correspondences (REF_POSE).
     K540 = K4.copy()
     K540[:2] /= 4.0
-    l540, r540 = render_pair(torch, K540, R_true, T_true, 540, 960, seed=SEED, device=dev)
+    l540, r540 = render_pair(K540, R_true, T_true, 540, 960, seed=SEED, device=dev)
     for pair, Kx in (((pl, pr), K4), ((l540, r540), K540)):
         size = f"{pair[0].shape[1]}x{pair[0].shape[0]}"
         ref = REF_POSE[size]
@@ -792,158 +679,7 @@ def learned_phase(torch, dev, host, no_kernels, pair4k):
                                  f"{POSE_SEEDS} seeds; bound R {ref['bound_R']}, t {ref['bound_t']}")
 
 
-# Phase 9's calibration set: CALIB_POSES board poses, each seen by both
-# cameras of phase 7's rig (K_4K, x2 = R x1 + T), both with distortion
-# CALIB_DIST; a board of 9 x 7 inner corners, CALIB_SQUARE m squares and a
-# one-square white margin, whose checker spans CALIB_SPAN of the frame's
-# width, tilted up to CALIB_TILT_DEG about x and y (and z by 0.7 of it),
-# placed where both cameras see it whole. Views are point-sampled
-# CALIB_SS x CALIB_SS per pixel, blurred and noisy.
-CALIB_POSES = 22
-CALIB_DIST = (0.2, -0.55, -1e-5, 5e-4, 0.38)
-CALIB_COLS, CALIB_ROWS, CALIB_SQUARE = 9, 7, 0.03
-CALIB_SPAN = (0.2, 0.45)
-CALIB_TILT_DEG = 30.0
-CALIB_SS = 4
-CALIB_BLUR, CALIB_NOISE = 0.8, 2.0  # Gaussian sigma (px) and noise sigma (grey levels)
-CALIB_CPU_VIEWS = 4  # views detected on the CPU as well
-
-
-def board_poses(torch, n, K, W, H, seed=SEED, border=24):
-    """n board poses (R, t), board -> camera 1, each one whose board and
-    margin both cameras of phase 7's rig see whole, `border` px inside the
-    frame (rejection sampling from a seeded generator)."""
-    from stereo_reconstruction_cv_tpu_torch.ops import geometry as G
-
-    f64 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64)  # noqa: E731
-    rng = np.random.default_rng(seed)
-    R_rig, T_rig = rotation_about(SCENE_AXIS, SCENE_DEG), np.array(SCENE_T)
-    s, c, r = CALIB_SQUARE, CALIB_COLS, CALIB_ROWS
-    a, b = np.linspace(-2, c + 1, 4 * (c + 3)) * s, np.linspace(-2, r + 1, 4 * (r + 3)) * s
-    edge = np.concatenate([np.stack([a, np.full_like(a, b[0])], 1), np.stack([a, np.full_like(a, b[-1])], 1),
-                           np.stack([np.full_like(b, a[0]), b], 1), np.stack([np.full_like(b, a[-1]), b], 1)])
-    edge = np.concatenate([edge, np.zeros((len(edge), 1))], 1)
-    centre = np.array([(c - 1) / 2 * s, (r - 1) / 2 * s, 0.0])
-    tilt = np.radians(CALIB_TILT_DEG) * np.array([1.0, 1.0, 0.7])
-    poses = []
-    while len(poses) < n:
-        z = (c + 1) * s * K[0, 0] / (rng.uniform(*CALIB_SPAN) * W)
-        rv = rng.uniform(-1, 1, 3) * tilt
-        R = rotation_about(rv, np.degrees(np.linalg.norm(rv)))
-        mid = np.array([-T_rig[0] / 2 + rng.uniform(-0.45, 0.45) * z * W / (2 * K[0, 0]),
-                        rng.uniform(-0.4, 0.4) * z * H / (2 * K[1, 1]), z])
-        t = mid - R @ centre
-        ok = True
-        for Rc, tc in ((R, t), (R_rig @ R, R_rig @ t + T_rig)):
-            px = G.project_points(f64(edge), G.matrix_to_rodrigues(f64(Rc)), f64(tc), f64(K),
-                                  f64(CALIB_DIST)).numpy()
-            depth = edge @ Rc[2] + tc[2]
-            ok &= bool((depth > 0).all() and (px >= border).all() and (px[:, 0] < W - border).all()
-                       and (px[:, 1] < H - border).all())
-        if ok:
-            poses.append((R, t))
-    return poses
-
-
-def render_board(torch, K, R, t, H, W, seed, device, ss=CALIB_SS, chunk=270):
-    """(H, W) uint8 view of the board at pose (R, t) (board -> camera) by a
-    camera with intrinsics K and distortion CALIB_DIST: each of ss x ss
-    samples a pixel is undistorted (the port's undistort_normalized),
-    ray-cast onto the board plane and shaded (dark and light squares, the
-    white margin, a grey ground), their mean blurred by a Gaussian of
-    CALIB_BLUR px, plus Gaussian noise of CALIB_NOISE from `seed`. Rows go
-    in chunks of `chunk`, float32."""
-    from stereo_reconstruction_cv_tpu_torch.ops import geometry as G
-
-    f32 = dict(dtype=torch.float32, device=device)
-    Rt = torch.as_tensor(np.asarray(R).T, **f32)            # camera -> board
-    ob = -(Rt @ torch.as_tensor(np.asarray(t), **f32))      # camera centre on the board
-    dist = torch.as_tensor(CALIB_DIST, **f32)
-    o = (torch.arange(ss, **f32) + 0.5) / ss - 0.5
-    xs = ((torch.arange(W, **f32)[:, None] + o).reshape(-1) - float(K[0, 2])) / float(K[0, 0])
-    img = torch.empty((H, W), **f32)
-    for y0 in range(0, H, chunk):
-        n = min(chunk, H - y0)
-        ys = ((torch.arange(y0, y0 + n, **f32)[:, None] + o).reshape(-1) - float(K[1, 2])) / float(K[1, 1])
-        xd = torch.stack(torch.broadcast_tensors(xs[None, :], ys[:, None]), dim=-1)
-        xy = G.undistort_normalized(xd, dist)
-        d = xy[..., 0:1] * Rt[:, 0] + xy[..., 1:2] * Rt[:, 1] + Rt[:, 2]  # rays on the board
-        lam = -ob[2] / d[..., 2]
-        u = (ob[0] + lam * d[..., 0]) / CALIB_SQUARE
-        v = (ob[1] + lam * d[..., 1]) / CALIB_SQUARE
-        front = lam > 0
-        checker = front & (u >= -1) & (u < CALIB_COLS) & (v >= -1) & (v < CALIB_ROWS)
-        board = front & (u >= -2) & (u < CALIB_COLS + 1) & (v >= -2) & (v < CALIB_ROWS + 1)
-        dark = checker & ((torch.floor(u) + torch.floor(v)) % 2 == 0)
-        val = torch.where(dark, 35.0, torch.where(board, 215.0, 110.0))
-        img[y0:y0 + n] = val.reshape(n, ss, W, ss).mean((1, 3))
-    r = int(math.ceil(3 * CALIB_BLUR))
-    k = torch.exp(-0.5 * (torch.arange(-r, r + 1, **f32) / CALIB_BLUR) ** 2)
-    k = k / k.sum()
-    p = torch.nn.functional.pad(img[None, None], (r, r, r, r), mode="replicate")[0, 0]
-    img = sum(k[i] * p[i:i + H] for i in range(2 * r + 1))
-    img = sum(k[i] * img[:, i:i + W] for i in range(2 * r + 1))
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    img = img + CALIB_NOISE * torch.randn((H, W), generator=gen, **f32)
-    return torch.round(img).clamp(0, 255).to(torch.uint8)
-
-
-def calibration_set(torch, device, H=2160, W=3840, n=CALIB_POSES, ss=CALIB_SS):
-    """The calibration set: for each of n poses, both cameras' views (uint8
-    (H, W) on `device`, ss x ss samples a pixel) and their true corners
-    (project_points of the object grid, float64); the rig's K (K_4K scaled
-    to W), R and T."""
-    from stereo_reconstruction_cv_tpu_torch.calib import zhang as Z
-    from stereo_reconstruction_cv_tpu_torch.ops import geometry as G
-
-    K = K_4K.copy()
-    K[:2] *= W / 3840.0
-    R_rig, T_rig = rotation_about(SCENE_AXIS, SCENE_DEG), np.array(SCENE_T)
-    obj = Z.build_object_points(CALIB_COLS, CALIB_ROWS, CALIB_SQUARE)
-    f64 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64)  # noqa: E731
-    views, truth = ([], []), ([], [])
-    for i, (R, t) in enumerate(board_poses(torch, n, K, W, H)):
-        for cam, (Rc, tc) in enumerate(((R, t), (R_rig @ R, R_rig @ t + T_rig))):
-            views[cam].append(render_board(torch, K, Rc, tc, H, W, seed=2 * i + cam, device=device,
-                                           ss=ss))
-            rv = G.matrix_to_rodrigues(f64(Rc))
-            truth[cam].append(G.project_points(obj, rv, f64(tc), f64(K), f64(CALIB_DIST)))
-    return {"views": views, "truth": tuple(torch.stack(x) for x in truth), "obj": obj, "K": K,
-            "R": R_rig, "T": T_rig, "size": (W, H)}
-
-
-def calibrate_set(torch, cs, sync=lambda: None):
-    """Detection in every view, calibrate_camera on all views,
-    calibrate_stereo on the pairs, each stage timed (sync() at its end):
-    the corners of both cameras (V, N, 2), the results, the seconds, and the
-    views where no board was found."""
-    from stereo_reconstruction_cv_tpu_torch.calib import chessboard as CB
-    from stereo_reconstruction_cv_tpu_torch.calib import stereo as SCAL
-    from stereo_reconstruction_cv_tpu_torch.calib import zhang as Z
-
-    t0 = time.perf_counter()
-    corners, missed = ([], []), []
-    for cam in (0, 1):
-        for i, img in enumerate(cs["views"][cam]):
-            found, c = CB.find_chessboard_corners(img, CALIB_COLS, CALIB_ROWS)
-            if not found:
-                missed.append((cam, i))
-            corners[cam].append(c)
-    sync()
-    t1 = time.perf_counter()
-    if missed:
-        return {"missed": missed, "detect_s": t1 - t0}
-    c1, c2 = torch.stack(corners[0]), torch.stack(corners[1])
-    obj = cs["obj"].to(c1.device)
-    mono = Z.calibrate_camera(obj, torch.cat([c1, c2]), cs["size"])
-    sync()
-    t2 = time.perf_counter()
-    rig = SCAL.calibrate_stereo(obj, c1, c2, cs["size"])
-    sync()
-    t3 = time.perf_counter()
-    return {"missed": missed, "corners": (c1, c2), "mono": mono, "rig": rig,
-            "detect_s": t1 - t0, "lm_s": t2 - t1, "stereo_s": t3 - t2}
+CALIB_CPU_VIEWS = 4  # views of phase 9 detected on the CPU as well
 
 
 def calibration_phase(torch, dev, host, no_kernels, config3):
@@ -956,19 +692,22 @@ def calibration_phase(torch, dev, host, no_kernels, config3):
     check."""
     from stereo_reconstruction_cv_tpu_torch.calib import chessboard as CB
     from stereo_reconstruction_cv_tpu_torch.calib import zhang as Z
+    from stereo_reconstruction_cv_tpu_torch.utils.synth import (CALIB_COLS, CALIB_POSES, CALIB_ROWS,
+                                                              CALIB_SS, K_4K, calibrate_set,
+                                                              calibration_set, pose_errors)
     from stereo_reconstruction_cv_tpu_torch.utils.timing import card
 
     sync = torch.cuda.synchronize
     t0 = time.perf_counter()
-    cs = calibration_set(torch, dev)
+    cs = calibration_set(dev)
     sync()
     V = 2 * len(cs["views"][0])
     W, H = cs["size"]
     log(f"[calib] rendered {V} views of {CALIB_POSES} poses at {W}x{H} ({CALIB_SS}x{CALIB_SS} "
         f"samples a pixel) on the card in {time.perf_counter() - t0:.2f} s")
     with no_kernels("calibration: detection, calibrate_camera, calibrate_stereo (first and warm)"):
-        first = calibrate_set(torch, cs, sync)
-        run = calibrate_set(torch, cs, sync) if not first["missed"] else first
+        first = calibrate_set(cs, sync)
+        run = calibrate_set(cs, sync) if not first["missed"] else first
     if run["missed"]:
         raise AssertionError(f"board not found in views (camera, pose) {run['missed']}")
     log(f"[calib] first run (cold: cuSOLVER and torch.func set-up): detection {first['detect_s']:.4f} s, "
@@ -1038,6 +777,125 @@ def calibration_phase(torch, dev, host, no_kernels, config3):
     return cs, run
 
 
+# Phase 10: the metrics the bench suite must print (the reference's names),
+# the headline (printed again last), and each config's kernels: those that
+# must launch in it and those that must not.
+BENCH_METRICS = ("sgbm_disparity_720p_128disp", "sad_wta_720p_64disp", "sparse_match_triangulate",
+                 "sgbm_disparity_4k_128disp", "sgbm_disparity_4k_128disp_5dir",
+                 "e2e_4k_pair_to_cloud", "e2e_4k_pair_to_cloud_alpha1", "streaming_8pair_4k")
+STREAM_PAIRS = 3  # 4K JPEG pairs through stream_reconstruct
+
+
+def bench_phase(torch, dev, main_path, dense, speckle):
+    """Phase 10: benchmarks.main([2, 1, 4, 3, 5]) on the card at full size,
+    each config under main_path(label, launched, not_launched); its lines
+    checked; then stream_reconstruct on STREAM_PAIRS rendered 4K pairs
+    written as JPEG files, its clouds against sgbm_disparity ->
+    reproject_image_to_3d on the same decoded frames. Raises
+    AssertionError on a failed check."""
+    import io
+
+    from stereo_reconstruction_cv_tpu_torch import benchmarks as B
+    from stereo_reconstruction_cv_tpu_torch import native
+    from stereo_reconstruction_cv_tpu_torch.io.image import save_image
+    from stereo_reconstruction_cv_tpu_torch.io.ply import read_ply
+    from stereo_reconstruction_cv_tpu_torch.ops import disparity as DP
+    from stereo_reconstruction_cv_tpu_torch.ops import geometry as G
+    from stereo_reconstruction_cv_tpu_torch.parallel.streaming import stream_reconstruct
+    from stereo_reconstruction_cv_tpu_torch.utils.synth import (BASELINE_M, K_4K, SEED, rectified_rig,
+                                                              render_pair)
+
+    others = tuple(k for k in KERNELS if k not in dense + speckle)
+    expect = {1: (("cost_volume",), tuple(k for k in KERNELS if k != "cost_volume")),
+              2: (dense + speckle, others), 3: (dense + speckle, others),
+              4: ((), tuple(KERNELS)), 5: (dense, speckle + others)}
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = B.main([2, 1, 4, 3, 5], device="cuda", decoder="nvjpeg",
+                        around=lambda c: main_path(f"bench config {c}", *expect[c]))
+    finally:
+        sys.stdout.write(buf.getvalue())
+        sys.stdout.flush()
+    wall = time.perf_counter() - t0
+    lines = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith('{"metric"')]
+    got = [x["metric"] for x in lines]
+    log(f"[bench] benchmarks.main exit {rc}, {len(lines)} lines in {wall:.2f} s: {got}")
+    errors = [x for x in lines if "error" in x]
+    if rc != 0 or errors:
+        raise AssertionError(f"bench: exit {rc}, error lines {errors}")
+    if sorted(set(got)) != sorted(BENCH_METRICS) or len(got) != len(BENCH_METRICS) + 1 \
+            or got[0] != B.HEADLINE or got[-1] != B.HEADLINE:
+        raise AssertionError(f"bench: metrics {got}, expected each of {BENCH_METRICS} once and "
+                             "the headline first and last")
+    for x in lines:
+        nums = [x["value"], x["median_s"], x["min_s"], x["max_s"]]
+        if x["backend"] != "torch-cuda" or not x["card"] or not x["power_limit"] \
+                or not all(isinstance(v, float) and math.isfinite(v) and v > 0 for v in nums) \
+                or not x["min_s"] <= x["median_s"] <= x["max_s"]:
+            raise AssertionError(f"bench line {x['metric']}: {x}")
+    c5 = next(x for x in lines if x["metric"] == "streaming_8pair_4k")
+    log(f"[bench] config 5: {c5['n_decodes']} pairs decoded ({c5['n_images_decoded']} images) "
+        f"and {c5['n_h2d_events']} host -> device copies inside each window, decoder "
+        f"{c5['decoder']}; decoded frames at least {c5['decode_psnr_db_min']:.3f} dB PSNR from "
+        f"the rendered ones (bound {B.JPEG_MIN_PSNR_DB} dB)")
+    if not (c5["n_decodes"] == c5["n_h2d_events"] == 8 and c5["decoder"] == "nvjpeg"
+            and c5["decode_psnr_db_min"] >= B.JPEG_MIN_PSNR_DB):
+        raise AssertionError(f"bench config 5: {c5}")
+
+    # Config 3's two 4K x 128 rows under the profiler: the device's busy
+    # time against the wall and the largest device items.
+    H, W = 2160, 3840
+    left, right = B._textured((W, H), SEED + 2, 48, dev)
+    for dirs in (5, 8):
+        c = DP.SGBMConfig(num_disparities=128, num_directions=dirs, speckle_window_size=0)
+        DP.sgbm_disparity_auto(left, right, c)
+        profile_idle(torch, f"config 3's 4K x128 {dirs}-dir row (sgbm_disparity_auto)",
+                     lambda: DP.sgbm_disparity_auto(left, right, c))
+
+    # stream_reconstruct on STREAM_PAIRS 4K JPEG pairs against the
+    # non-streamed path on the same decoded frames.
+    cfg = DP.SGBMConfig(num_disparities=128, num_directions=8, speckle_window_size=0)
+    Kt, res = rectified_rig((W, H))
+    T = np.array([-BASELINE_M, 0.0, 0.0])
+    with tempfile.TemporaryDirectory() as td:
+        pairs = []
+        for k in range(STREAM_PAIRS):
+            row = tuple(os.path.join(td, f"pair{k}_{side}.jpg") for side in "lr")
+            for img, path in zip(render_pair(K_4K, np.eye(3), T, H, W, seed=SEED + k, device=dev),
+                                 row):
+                save_image(path, img.cpu().numpy(), quality=B.JPEG_QUALITY)
+            pairs.append(row)
+        with main_path("stream_reconstruct (3 4K JPEG pairs)", dense, speckle):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            clouds = stream_reconstruct(pairs, res.Q.numpy(), cfg, os.path.join(td, "out"),
+                                        batch_size=2, prefetch=2, decoder="nvjpeg")
+            wall = time.perf_counter() - t0
+        Q = res.Q.to(device=dev, dtype=torch.float32)
+        worst, n_total = 0.0, 0
+        for row, path in zip(pairs, clouds):
+            lr = [torch.from_numpy(native.load_image(p, True, "nvjpeg")).to(dev) for p in row]
+            d, v = DP.sgbm_disparity(lr[0], lr[1], cfg)
+            pts = G.reproject_image_to_3d(d, Q)
+            want = pts[v & torch.isfinite(pts).all(-1) & (d > 0)].cpu().numpy()
+            got_pts, _ = read_ply(path)
+            if got_pts.shape != want.shape:
+                raise AssertionError(f"{os.path.basename(path)}: {got_pts.shape} points, the "
+                                     f"non-streamed path {want.shape}")
+            if not np.array_equal(got_pts, want):
+                rel = float(np.abs(got_pts - want).max() / np.abs(want).max())
+                worst = max(worst, rel)
+            n_total += len(want)
+    log(f"[bench] stream_reconstruct: {STREAM_PAIRS} 4K JPEG pairs (batch 2, prefetch 2, nvjpeg) "
+        f"in {wall:.3f} s, {n_total} points; clouds "
+        + ("bit-equal to" if worst == 0.0 else f"within {worst:.3e} relative of")
+        + " the non-streamed path's")
+    if worst > F32_RTOL:
+        raise AssertionError(f"stream_reconstruct: relative error {worst} > {F32_RTOL}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1062,6 +920,10 @@ def main() -> int:
         from stereo_reconstruction_cv_tpu_torch.pipeline import stages
         from stereo_reconstruction_cv_tpu_torch.tools import micro_i16, micro_wta
         from stereo_reconstruction_cv_tpu_torch.tools.probe_sweep import textured_pair
+        from stereo_reconstruction_cv_tpu_torch.utils.synth import (K_4K, SCENE_AXIS, SCENE_DEG,
+                                                                  SCENE_T, SEED, pose_errors,
+                                                                  rectified_rig, render_pair,
+                                                                  rotation_about, scene_hit)
         from stereo_reconstruction_cv_tpu_torch.utils.timing import cuda_ms, graph_ms, kernel_ms, launch_ms
     except ImportError as e:
         log(f"FAIL import: {e} (run from the root of a checkout of the repository)")
@@ -1380,16 +1242,6 @@ def main() -> int:
             raise AssertionError(f"{label}: kernels not launched {missing}, "
                                  f"launched though they should not be {extra}")
 
-    def rig(W, H, alpha):
-        s = W / 3840.0
-        K = K_4K.copy()
-        K[:2] *= s
-        Kt = torch.tensor(K, dtype=torch.float64)
-        res = RC.stereo_rectify(Kt, None, Kt, None, (W, H), torch.eye(3, dtype=torch.float64),
-                                torch.tensor([-BASELINE_M, 0.0, 0.0], dtype=torch.float64),
-                                alpha=alpha)
-        return Kt, res
-
     # -------------------------------------------------------------- 4. 720p
     @phase("4 main path 720p")
     def _():
@@ -1450,7 +1302,7 @@ def main() -> int:
                                          **bound(9 * px, OPS_PER["speckle_labels"] * px))
         results["speckle_keep"].update(ms=times[2], plain_ms=times[3],
                                        **bound(6 * px, OPS_PER["speckle_keep"] * px))
-        Kt, res = rig(W, H, 0.0)
+        Kt, res = rectified_rig((W, H))
         with tempfile.TemporaryDirectory() as td, \
                 main_path("720p CLI chain (host speckle)", dense, speckle):
             out = os.path.join(td, "cloud.ply")
@@ -1619,7 +1471,7 @@ def main() -> int:
         rng = np.random.default_rng(SEED + 2)
         shift = 48
         left, right = textured_pair(rng, H4, W4, shift)
-        Kt, res = rig(W4, H4, 0.0)
+        Kt, res = rectified_rig((W4, H4))
         expect = shift * float(res.P1[0, 0] / Kt[0, 0])
 
         def run(out_path, stamps=None):
@@ -1864,7 +1716,7 @@ def main() -> int:
         base = float(np.linalg.norm(T_true))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        left, right = render_pair(torch, K_4K, R_true, T_true, H4, W4, seed=SEED, device=dev)
+        left, right = render_pair(K_4K, R_true, T_true, H4, W4, seed=SEED, device=dev)
         torch.cuda.synchronize()
         log(f"[sparse] rendered the {W4}x{H4} scene pair on the card in {time.perf_counter() - t0:.2f} s; "
             f"R {SCENE_DEG} deg about {SCENE_AXIS}, T {SCENE_T} m")
@@ -1945,7 +1797,7 @@ def main() -> int:
             n_file = check_ply(out)
         valid = (dmap > 0) & torch.isfinite(pts).all(-1)
         X = pts[valid].double() @ torch.as_tensor(rect["R1"], device=dev)  # R1^T, row-wise
-        t_hit, _, _ = scene_hit(torch, (0.0, 0.0, 0.0), X)
+        t_hit, _, _ = scene_hit((0.0, 0.0, 0.0), X)
         z_true = t_hit * X[:, 2]
         good = float((((X[:, 2] - z_true).abs() / z_true) < 0.02).double().mean().item())
         log(f"[sparse] dense points {n} (file {n_file}); share within 2% of the true depth {good:.4f}")
@@ -1996,10 +1848,7 @@ def main() -> int:
         def config3(K):
             """Config 3's device chain on phase 5's pair, rectified for the rig
             at K: (disparity map, keep mask, P1[0, 0]), timed."""
-            Kt = torch.tensor(np.asarray(K), dtype=torch.float64)
-            res = RC.stereo_rectify(Kt, None, Kt, None, (W4, H4), torch.eye(3, dtype=torch.float64),
-                                    torch.tensor([-BASELINE_M, 0.0, 0.0], dtype=torch.float64),
-                                    alpha=0.0)
+            Kt, res = rectified_rig((W4, H4), K=K)
             Q = res.Q.to(device=dev, dtype=torch.float32)
             walls, out = [], None
             label = "anchor" if np.array_equal(np.asarray(K), K_4K) else "calibrated"
@@ -2021,6 +1870,11 @@ def main() -> int:
 
         calibration_phase(torch, dev, torch.device("cpu"),
                           lambda label: main_path(label, (), tuple(KERNELS)), config3)
+
+    # ------------------------------------------------------------ 10. bench
+    @phase("10 bench")
+    def _():
+        bench_phase(torch, dev, main_path, dense, speckle)
 
     if failures:
         log(f"FAILED phases: {failures}")

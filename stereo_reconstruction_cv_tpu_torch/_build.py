@@ -1,12 +1,16 @@
 """Build and load the port's native libraries at first use.
 
-Two shared libraries with plain C interfaces, loaded with ctypes:
+Shared libraries with plain C interfaces, loaded with ctypes:
 
 - the CUDA kernels: ``nvcc`` over ``csrc/*.cu`` for ``sm_90a`` (Hopper);
 - the host speckle filter: ``g++`` over the reference's ``native/speckle.cc``
-  alone (no libjpeg, unlike the reference's ``libstereo_native.so``).
+  alone (no libjpeg, unlike the reference's ``libstereo_native.so``);
+- the JPEG decoders, each apart, so that a machine without one still runs
+  everything else: ``g++`` over the reference's ``native/jpeg_loader.cc``
+  with ``-ljpeg`` (libjpeg), and ``nvcc`` over ``csrc/nvjpeg_decode.cc``
+  with ``-lnvjpeg`` (nvJPEG, from the CUDA toolkit).
 
-Both are built the same way: one compiler process per source, all started
+All are built the same way: one compiler process per source, all started
 together, then one link. Each library is written to ``build/`` at the
 repository root under a name that carries a digest of its sources and flags,
 so an edited source is never served by a stale library. A build that fails raises: there is no fallback.
@@ -30,6 +34,8 @@ ROOT = _PKG.parent
 BUILD_DIR = ROOT / "build"
 CUDA_SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
 SPECKLE_SOURCE = ROOT / "native" / "speckle.cc"
+JPEG_SOURCE = ROOT / "native" / "jpeg_loader.cc"
+NVJPEG_SOURCE = _PKG / "csrc" / "nvjpeg_decode.cc"
 
 # Precise division and no fused contractions are part of the numerics
 # contract (the subpixel f32 maths must match the reference bit for bit):
@@ -40,6 +46,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 GXX_FLAGS = ("-O3", "-fPIC", "-std=c++17")
+NVJPEG_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -68,15 +75,15 @@ def _run(cmds, log: list, name: str) -> None:
         raise RuntimeError(failed[0])
 
 
-def _compile(cmd_prefix, sources, flags, name: str) -> Path:
+def _compile(cmd_prefix, sources, flags, name: str, libs=()) -> Path:
     """Compile `sources` into build/<name>-<digest>.so unless it exists.
 
     Each source is compiled to an object by its own process, all started
-    together, and the objects are then linked with -shared. The output goes
+    together, and the objects are then linked with -shared and `libs`. The output goes
     to a per-process temporary name and is renamed into place, so concurrent
     first uses (test workers) never load a partial file. The compilers'
     messages are kept beside the library."""
-    out = BUILD_DIR / f"{name}-{_digest(sources, flags)}.so"
+    out = BUILD_DIR / f"{name}-{_digest(sources, (*flags, *libs))}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -86,7 +93,7 @@ def _compile(cmd_prefix, sources, flags, name: str) -> Path:
     try:
         _run([[*cmd_prefix, *flags, "-c", "-o", str(o), str(src)]
               for o, src in zip(objs, sources)], log, name)
-        _run([[*cmd_prefix, "-shared", "-o", str(tmp), *map(str, objs)]], log, name)
+        _run([[*cmd_prefix, "-shared", "-o", str(tmp), *map(str, objs), *libs]], log, name)
         os.replace(tmp, out)
     finally:
         out.with_suffix(".log").write_text("".join(log))
@@ -121,10 +128,7 @@ def speckle_library() -> ctypes.CDLL:
     """The host union-find speckle filter (built on first call)."""
     lib = _loaded.get("speckle")
     if lib is None:
-        gxx = shutil.which("g++")
-        if gxx is None:
-            raise RuntimeError("g++ not found: the host speckle filter is built at first use")
-        path = _compile([gxx], (SPECKLE_SOURCE,), GXX_FLAGS, "libsrcv_speckle")
+        path = _compile([_gxx()], (SPECKLE_SOURCE,), GXX_FLAGS, "libsrcv_speckle")
         lib = ctypes.CDLL(str(path))
         lib.stereo_native_filter_speckles.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p,
@@ -132,6 +136,51 @@ def speckle_library() -> ctypes.CDLL:
         ]
         lib.stereo_native_filter_speckles.restype = None
         _loaded["speckle"] = lib
+    return lib
+
+
+def _gxx() -> str:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the host libraries are built at first use")
+    return gxx
+
+
+def jpeg_library() -> ctypes.CDLL:
+    """The reference's libjpeg decoder (built on first call; needs libjpeg's
+    headers and library)."""
+    lib = _loaded.get("jpeg")
+    if lib is None:
+        path = _compile([_gxx()], (JPEG_SOURCE,), GXX_FLAGS, "libsrcv_jpeg", libs=("-ljpeg",))
+        lib = ctypes.CDLL(str(path))
+        P, I, SZ = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+        lib.stereo_native_jpeg_info.argtypes = [P, SZ, P, P, P]
+        lib.stereo_native_jpeg_decode.argtypes = [P, SZ, P, I]
+        lib.stereo_native_jpeg_info.restype = I
+        lib.stereo_native_jpeg_decode.restype = I
+        _loaded["jpeg"] = lib
+    return lib
+
+
+def nvjpeg_library() -> ctypes.CDLL:
+    """The nvJPEG decoder (built on first call with the toolkit's nvcc,
+    linked to its libnvjpeg)."""
+    lib = _loaded.get("nvjpeg")
+    if lib is None:
+        nvcc = nvcc_path()
+        cuda_lib = Path(nvcc).resolve().parent.parent / "lib64"
+        path = _compile([nvcc], (NVJPEG_SOURCE,), NVJPEG_FLAGS, "libsrcv_nvjpeg",
+                        libs=("-lnvjpeg", "-Xlinker", f"-rpath={cuda_lib}"))
+        lib = ctypes.CDLL(str(path))
+        P, I, SZ = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+        lib.srcv_nvjpeg_create.argtypes = [P]
+        lib.srcv_nvjpeg_destroy.argtypes = [P]
+        lib.srcv_nvjpeg_info.argtypes = [P, P, SZ, P, P, P]
+        lib.srcv_nvjpeg_decode.argtypes = [P, P, SZ, P, I]
+        for fn in (lib.srcv_nvjpeg_create, lib.srcv_nvjpeg_destroy, lib.srcv_nvjpeg_info,
+                   lib.srcv_nvjpeg_decode):
+            fn.restype = I
+        _loaded["nvjpeg"] = lib
     return lib
 
 

@@ -17,6 +17,10 @@
   report       pair folder -> one HTML page of every stage's images and
                numbers, the point-cloud viewer and the stage metrics
   view         PLY -> standalone HTML point-cloud viewer
+  bench        the benchmark suite: one JSON line per BASELINE metric of
+               CONFIGS (default 2 1 4 3 5, the headline again last); exits 1
+               if a config failed. --decoder names config 5's JPEG decoder,
+               --scale shrinks every frame (a quick run on the CPU)
 
 A pair folder holds img1.jpg (left) and img2.jpg (right). --calibration
 reads K (and, for rectify --undistort, dist) from an .npz; without it the
@@ -281,6 +285,13 @@ def cmd_view(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from stereo_reconstruction_cv_tpu_torch import benchmarks
+
+    return benchmarks.main(args.configs, device=args.device, decoder=args.decoder,
+                           scale=args.scale)
+
+
 def _validate_reference_ranges(args) -> None:
     """The reference GUI's input checks: a bad value warns and falls back to
     the default (baseline > 0, else 0.1; contrast threshold in [0, 0.1],
@@ -364,6 +375,15 @@ def main(argv=None) -> int:
     rp = verb("report", cmd_report, "full-pipeline HTML report")
     rp.add_argument("--ndisp", type=int, default=64)
     rp.add_argument("--output", default="stereo_report.html")
+
+    b = verb("bench", cmd_bench, "the benchmark suite (BASELINE configs 1-5)", rig=False,
+             inputs=())
+    b.add_argument("configs", nargs="*", type=int, choices=range(1, 6), metavar="CONFIG",
+                   help="configs to run, in order (default: 2 1 4 3 5)")
+    b.add_argument("--decoder", default="nvjpeg", choices=("libjpeg", "nvjpeg"),
+                   help="config 5's JPEG decoder (default: nvjpeg)")
+    b.add_argument("--scale", type=float, default=1.0,
+                   help="frame sizes times this (default 1: the reference's sizes)")
 
     v = sub.add_parser("view", help="PLY -> standalone HTML viewer")
     v.add_argument("cloud")

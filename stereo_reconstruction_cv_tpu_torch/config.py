@@ -4,8 +4,9 @@ The port's own copy of the classes of ``stereo_reconstruction_cv_tpu/
 config.py``: the same fields, defaults and ``with_``, so a configuration
 written for the reference reads the same here (``convert.sgbm_config`` and
 ``convert.pipeline_config`` carry one across field by field). The
-calibration classes are carried for that parity; the port has no
-calibration yet (ROADMAP A.14).
+calibration classes are carried for that parity: the port's calibration
+(``calib/``) takes the same defaults as arguments and reads
+no configuration object, as the reference's does not either.
 """
 
 from __future__ import annotations

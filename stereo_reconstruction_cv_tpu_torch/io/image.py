@@ -5,7 +5,8 @@ calibration folder's images are its *.jpg files. Decoding
 and encoding go through PIL, which is imported inside the functions that use
 it, so the package imports where PIL is absent. The reference decodes JPEGs
 with its own libjpeg build where present (bit-exact to cv2.imread) and with
-PIL otherwise; the port always uses PIL.
+PIL otherwise; here the CLI's loaders use PIL, and the streaming path
+decodes with a decoder it names (``native.decode_jpeg``).
 """
 
 from __future__ import annotations
@@ -33,10 +34,13 @@ def load_rgb(path: str) -> np.ndarray:
     return np.asarray(Image.open(path).convert("RGB"))
 
 
-def save_image(path: str, img: np.ndarray) -> None:
+def save_image(path: str, img: np.ndarray, quality: int | None = None) -> None:
+    """Write (H, W) or (H, W, 3) uint8 in the format of the path's extension;
+    `quality` is the JPEG quality (PIL's default, 75, when None)."""
     from PIL import Image
 
-    Image.fromarray(np.asarray(img)).save(path)
+    params = {} if quality is None else {"quality": quality}
+    Image.fromarray(np.asarray(img)).save(path, **params)
 
 
 def load_stereo_pair(folder: str) -> Tuple[np.ndarray, np.ndarray]:

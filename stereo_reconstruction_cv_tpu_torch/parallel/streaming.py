@@ -1,0 +1,107 @@
+"""Streaming batched stereo pipeline (after ``stereo_reconstruction_cv_tpu/parallel/streaming.py``; BASELINE config 5).
+
+Pairs flow from disk through the prefetching JPEG loader into a batched
+dense step (SGBM -> disparity -> 3D reprojection) on the device, with one
+point cloud written per pair. The loader decodes and copies batch k+1 while
+batch k computes; each pair's points are compacted on the device and copied
+to pinned host memory asynchronously, so the PLY write of one batch runs on
+the host while the device computes the next.
+
+The reference's ``mesh=`` (batches sharded over a device mesh) belongs to the
+multi-device port (ROADMAP A.16) and is not here.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from stereo_reconstruction_cv_tpu_torch.config import SGBMConfig
+from stereo_reconstruction_cv_tpu_torch.io import ply as PLY
+from stereo_reconstruction_cv_tpu_torch.ops import disparity as DP
+from stereo_reconstruction_cv_tpu_torch.ops import geometry as G
+from stereo_reconstruction_cv_tpu_torch.parallel.prefetch import PrefetchLoader
+
+
+def dense_batch_step(left: torch.Tensor, right: torch.Tensor, Q, cfg: SGBMConfig):
+    """(B, H, W) uint8 pairs -> (disparity (B, H, W), points (B, H, W, 3),
+    valid (B, H, W)) on their device. The port's sgbm_disparity takes one
+    frame, so the batch runs one pair after the other. No ``mesh=``: the
+    sharded step is ROADMAP A.16."""
+    Qt = torch.as_tensor(np.asarray(Q), dtype=torch.float32, device=left.device)
+    maps = [DP.sgbm_disparity(l, r, cfg) for l, r in zip(left, right)]
+    disp = torch.stack([d for d, _ in maps])
+    valid = torch.stack([v for _, v in maps])
+    pts = torch.stack([G.reproject_image_to_3d(d, Qt) for d in disp])
+    return disp, pts, valid
+
+
+def cloud_points(disp: torch.Tensor, pts: torch.Tensor, valid: torch.Tensor):
+    """The points of one pair that go into its cloud, valid & finite &
+    disp > 0 in row-major order, without waiting for the device: (points
+    (H*W, 3) whose first `count` rows are the cloud, count (1,) int64), both
+    on the device. The other rows are unspecified."""
+    mask = (valid & G.valid_point_mask(pts, disp)).reshape(-1)
+    n = mask.numel()
+    rank = torch.cumsum(mask, 0) - 1
+    slot = torch.where(mask, rank, torch.full_like(rank, n))  # the rest to a spare row
+    out = torch.empty((n + 1, 3), dtype=pts.dtype, device=pts.device)
+    out.index_copy_(0, slot, pts.reshape(-1, 3))
+    return out[:n], mask.sum().reshape(1)
+
+
+def stream_reconstruct(
+    pairs: Sequence[Tuple[str, str]],
+    Q: np.ndarray,
+    cfg: SGBMConfig,
+    out_dir: str,
+    batch_size: int = 2,
+    prefetch: int = 2,
+    decoder: str = "libjpeg",
+    device="cuda",
+) -> List[str]:
+    """Stream stereo pairs (left, right JPEG paths) -> per-pair PLY point
+    clouds ``out_dir/cloud_{idx:04d}.ply``. Returns the paths.
+
+    `decoder` is one of native.DECODERS. Each cloud holds the points with
+    valid & finite & disp > 0, in row-major order, as the reference writes
+    them. On the device the points go to pinned host buffers through an
+    async copy and an event; a batch's clouds are written once the next
+    batch's compute is queued. No ``mesh=`` (ROADMAP A.16)."""
+    os.makedirs(out_dir, exist_ok=True)
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    outputs: List[str] = []
+    pending: list = []  # (path, host points, host count, event) of the batch before
+
+    def write(batch):
+        for path, host_pts, host_n, event in batch:
+            if event is not None:
+                event.synchronize()
+            PLY.write_ply(path, host_pts[: int(host_n[0])].numpy())
+
+    with PrefetchLoader(pairs, batch_size=batch_size, prefetch=prefetch, gray=True,
+                        decoder=decoder, device=dev) as loader:
+        for left, right in loader:
+            disp, pts, valid = dense_batch_step(left, right, Q, cfg)
+            batch = []
+            for i in range(disp.shape[0]):
+                points, count = cloud_points(disp[i], pts[i], valid[i])
+                host_pts = torch.empty(points.shape, dtype=points.dtype, pin_memory=on_card)
+                host_n = torch.empty(count.shape, dtype=count.dtype, pin_memory=on_card)
+                host_pts.copy_(points, non_blocking=True)
+                host_n.copy_(count, non_blocking=True)
+                event = None
+                if on_card:
+                    event = torch.cuda.Event()
+                    event.record()
+                path = os.path.join(out_dir, f"cloud_{len(outputs):04d}.ply")
+                batch.append((path, host_pts, host_n, event))
+                outputs.append(path)
+            write(pending)
+            pending = batch
+        write(pending)
+    return outputs

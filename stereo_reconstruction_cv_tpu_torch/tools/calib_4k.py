@@ -2,8 +2,8 @@
 
     python -m stereo_reconstruction_cv_tpu_torch.tools.calib_4k --out CALIB.npz
 
-Run from the repository root, on the card. Renders chip_smoke.py's
-calibration set (22 board poses, each seen by both cameras of phase 7's rig,
+Run on the card. Renders utils/synth.py's calibration set (22 board
+poses, each seen by both cameras of the raw rig,
 3840x2160), detects every board, and calibrates: calibrate_camera on all 44
 views, calibrate_stereo on the 22 pairs. Prints one JSON line (the times,
 the errors against the truth) and saves the corners, the object grid and
@@ -30,19 +30,19 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("calib_4k: no CUDA device", file=sys.stderr)
         return 2
-    import chip_smoke as cs
+    from stereo_reconstruction_cv_tpu_torch.utils import synth
     from stereo_reconstruction_cv_tpu_torch.utils.timing import card
 
     dev = torch.device("cuda")
-    calib = cs.calibration_set(torch, dev)
-    run = cs.calibrate_set(torch, calib, torch.cuda.synchronize)
+    calib = synth.calibration_set(dev)
+    run = synth.calibrate_set(calib, torch.cuda.synchronize)
     if run["missed"]:
         print(f"calib_4k: no board in views (camera, pose) {run['missed']}", file=sys.stderr)
         return 1
     c1, c2 = (c.cpu() for c in run["corners"])
     err = torch.cat([c1 - calib["truth"][0], c2 - calib["truth"][1]]).norm(dim=-1)
     mono, rig = run["mono"], run["rig"]
-    r_err, t_err = cs.pose_errors(rig.R.cpu().numpy(), rig.T.cpu().numpy(), calib["R"], calib["T"])
+    r_err, t_err = synth.pose_errors(rig.R.cpu().numpy(), rig.T.cpu().numpy(), calib["R"], calib["T"])
     print(json.dumps({
         "card": card(), "views": 2 * len(c1), "detect_s": run["detect_s"], "lm_s": run["lm_s"],
         "stereo_s": run["stereo_s"], "corner_error_mean_px": float(err.mean()),

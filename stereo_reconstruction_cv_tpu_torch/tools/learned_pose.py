@@ -1,8 +1,8 @@
-"""The learned geometry path's pose on chip_smoke.py's rendered scene.
+"""The learned geometry path's pose on the rendered scene of utils/synth.py.
 
     python -m stereo_reconstruction_cv_tpu_torch.tools.learned_pose [--seeds N] [--out CORR.npz]
 
-Run from the repository root, on the card. Phase 7's rig (x2 = R x1 + T, R
+Run on the card. The raw rig of utils/synth.py (chip_smoke.py phase 7's) (x2 = R x1 + T, R
 1.2 deg, T (-0.14, 0.004, -0.003) m) at two sizes: 960x540 with K_4K / 4,
 detected at its own size, and 3840x2160 with K_4K, detected at 1920x1080
 with LK at full size. For each size: estimate_geometry(method="learned")
@@ -42,26 +42,26 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("learned_pose: no CUDA device", file=sys.stderr)
         return 2
-    import chip_smoke as cs
     from stereo_reconstruction_cv_tpu_torch import config as C
+    from stereo_reconstruction_cv_tpu_torch.utils import synth
     from stereo_reconstruction_cv_tpu_torch.ops import geometry as G
     from stereo_reconstruction_cv_tpu_torch.ops.refine import refine_matches_lk
     from stereo_reconstruction_cv_tpu_torch.pipeline import stages
 
     dev = torch.device("cuda")
-    R_true, T_true = cs.rotation_about(cs.SCENE_AXIS, cs.SCENE_DEG), np.array(cs.SCENE_T)
+    R_true, T_true = synth.rotation_about(synth.SCENE_AXIS, synth.SCENE_DEG), np.array(synth.SCENE_T)
     base = float(np.linalg.norm(T_true))
     cfg = C.DEFAULT.match
     saved = {}
     for H, W in ((540, 960), (2160, 3840)):
-        K = cs.K_4K.copy()
+        K = synth.K_4K.copy()
         K[:2] *= W / 3840.0
-        left, right = cs.render_pair(torch, K, R_true, T_true, H, W, seed=cs.SEED, device=dev)
+        left, right = synth.render_pair(K, R_true, T_true, H, W, seed=synth.SEED, device=dev)
         runs = []
         for seed in range(args.seeds):
             g = stages.estimate_geometry((left, right), base, K, seed=seed, method="learned",
                                          device=dev)
-            r, t = cs.pose_errors(g["Rotation Matrix"], g["Translation Vector"], R_true, T_true)
+            r, t = synth.pose_errors(g["Rotation Matrix"], g["Translation Vector"], R_true, T_true)
             runs.append({"seed": seed, "matches": g["num_matches"], "F_inliers": g["num_inliers_F"],
                          "E_inliers": g["num_inliers_E"], "R_deg": r, "t_deg": t})
         p1, p2, mask, factor = stages._match_for_geometry(left, right, cfg, method="learned")

@@ -2,7 +2,7 @@
 
     python -m stereo_reconstruction_cv_tpu_torch.tools.probe_sparse
 
-On the 4K scene of chip_smoke.py phase 7 (run from the repository root):
+On the 4K scene of chip_smoke.py phase 7 (utils/synth.py's raw rig):
 1. the 5-point solver over 256 minimal problems, as it stands (the
    reference's unrolled partially pivoted LU for det M~) and with
    ``torch.linalg.det`` in its place: times, and whether both find the same
@@ -29,16 +29,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("probe_sparse: no CUDA device", file=sys.stderr)
         return 2
-    import chip_smoke as cs
     from stereo_reconstruction_cv_tpu_torch.ops import fivepoint as FP
     from stereo_reconstruction_cv_tpu_torch.pipeline import stages
+    from stereo_reconstruction_cv_tpu_torch.utils import synth
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     M = 256  # the samples find_essential draws at the default 2048 hypotheses
     X = np.stack([rng.uniform(-2, 2, (M, 5)), rng.uniform(-1.5, 1.5, (M, 5)),
                   rng.uniform(3, 8, (M, 5))], -1)
-    X2 = X @ cs.rotation_about((0.1, 1.0, 0.2), 3.0).T + np.array([-1.0, 0.1, 0.05])
+    X2 = X @ synth.rotation_about((0.1, 1.0, 0.2), 3.0).T + np.array([-1.0, 0.1, 0.05])
     n1 = torch.from_numpy(X[..., :2] / X[..., 2:]).to(dev)
     n2 = torch.from_numpy(X2[..., :2] / X2[..., 2:]).to(dev)
 
@@ -64,16 +64,16 @@ def main() -> int:
                       "roots": int(v1.sum()), "same_valid": bool(torch.equal(v1, v2)),
                       "max_candidate_diff": float(diff.max()) if diff.numel() else 0.0}))
 
-    K = cs.K_4K
-    left, right = cs.render_pair(torch, K, cs.rotation_about(cs.SCENE_AXIS, cs.SCENE_DEG),
-                                 np.array(cs.SCENE_T), 2160, 3840, seed=cs.SEED, device=dev)
-    stages.estimate_geometry((left, right), cs.BASELINE_M, K, device="cuda")
+    K = synth.K_4K
+    left, right = synth.render_pair(K, synth.rotation_about(synth.SCENE_AXIS, synth.SCENE_DEG),
+                                 np.array(synth.SCENE_T), 2160, 3840, seed=synth.SEED, device=dev)
+    stages.estimate_geometry((left, right), synth.BASELINE_M, K, device="cuda")
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            stages.estimate_geometry((left, right), cs.BASELINE_M, K, device="cuda")
+            stages.estimate_geometry((left, right), synth.BASELINE_M, K, device="cuda")
         finally:
             torch.cuda.set_sync_debug_mode(0)
     lines = {}

@@ -2,8 +2,8 @@
 
     python -m stereo_reconstruction_cv_tpu_torch.tools.time_config4 [RUNS]
 
-Run from the repository root (it renders chip_smoke.py phase 8's 960x536
-pair). The step is detect_pair (1024 keypoints) -> match_learned ->
+Renders chip_smoke.py phase 8's 960x536 pair (benchmarks.bench_config4's
+first). The step is detect_pair (1024 keypoints) -> match_learned ->
 gather_correspondences -> triangulate_points -> masked sum, with the
 shipped weights; RUNS warm runs (20 by default) after one cold one, each
 synchronised. Then the corner refinement of both images' keypoints,
@@ -32,26 +32,25 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("time_config4: no CUDA device", file=sys.stderr)
         return 2
-    import chip_smoke as cs
+    from stereo_reconstruction_cv_tpu_torch import benchmarks as B
     from stereo_reconstruction_cv_tpu_torch.models import xfeat as XF
     from stereo_reconstruction_cv_tpu_torch.ops import geometry as G
     from stereo_reconstruction_cv_tpu_torch.ops import matching as MT
-    from stereo_reconstruction_cv_tpu_torch.ops import rectify as RC
     from stereo_reconstruction_cv_tpu_torch.pipeline import stages
+    from stereo_reconstruction_cv_tpu_torch.utils import synth
 
     dev = torch.device("cuda")
-    H, W = cs.C4_SIZE
-    K = cs.K_4K.copy()
+    W, H = B.CONFIG4_SIZE
+    K = synth.K_4K.copy()
     K[:2] *= W / 3840.0
-    T = np.array([-cs.BASELINE_M, 0.0, 0.0])
-    left, right = cs.render_pair(torch, K, np.eye(3), T, H, W, seed=cs.SEED, device=dev)
-    rect = RC.stereo_rectify(torch.tensor(K), None, torch.tensor(K), None, (W, H),
-                             torch.eye(3, dtype=torch.float64), torch.tensor(T), alpha=0.0)
+    T = np.array([-synth.BASELINE_M, 0.0, 0.0])
+    left, right = synth.render_pair(K, np.eye(3), T, H, W, seed=synth.SEED, device=dev)
+    _, rect = synth.rectified_rig((W, H))
     P1, P2 = rect.P1.to(dev, torch.float32), rect.P2.to(dev, torch.float32)
     model = stages._xfeat_model(None, dev)
 
     def detect():
-        return XF.detect_pair(model, left, right, cs.C4_MAXK)
+        return XF.detect_pair(model, left, right, B.CONFIG4_MAXK)
 
     def step():
         f1, f2 = detect()
@@ -72,7 +71,7 @@ def main(argv=None) -> int:
 
     imgs = torch.stack([left, right])
     heats = XF.heatmap_from_logits(model(imgs.to(torch.float32) / 255.0)[0])
-    kpts = torch.stack([XF.peaks(heats[i], cs.C4_MAXK)[1] for i in range(2)])
+    kpts = torch.stack([XF.peaks(heats[i], B.CONFIG4_MAXK)[1] for i in range(2)])
     refine = {
         "per_image": lambda: [XF.refine_keypoints(imgs[i], kpts[i]) for i in range(2)],
         "batched": lambda: XF.refine_keypoints(imgs, kpts),

@@ -1,1 +1,2 @@
-"""Host-side helpers: display (draw) and CUDA-event timing (timing)."""
+"""Host-side helpers: display (draw), CUDA-event timing (timing), stage metrics
+(profiling, capture) and the rendered scenes and boards (synth)."""

@@ -10,7 +10,6 @@ summary to the reference's Metrics; the error dicts to the reference's
 stages where those return before any JAX work.
 """
 
-import importlib.util
 import json
 import os
 import pathlib
@@ -32,18 +31,11 @@ from stereo_reconstruction_cv_tpu_torch.io import ply as PLY
 from stereo_reconstruction_cv_tpu_torch.io import viewer as VW
 from stereo_reconstruction_cv_tpu_torch.pipeline import cache as CACHE
 from stereo_reconstruction_cv_tpu_torch.pipeline import stages
-from stereo_reconstruction_cv_tpu_torch.utils import capture, profiling
+from stereo_reconstruction_cv_tpu_torch.utils import capture, profiling, synth
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CALIB_KEYS = {"K", "dist", "rvecs", "tvecs", "rms", "mean_error", "per_view_error", "num_images",
               "results"}
-
-
-def _smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -58,7 +50,7 @@ def one_thread():
 def boards(tmp_path_factory):
     """Two folders cam1/, cam2/ of the calibration set's views as JPEGs, a
     folder with two of them, an empty one, and the set's truth."""
-    cs = _smoke().calibration_set(torch, "cpu", H=540, W=960, n=4, ss=2)
+    cs = synth.calibration_set("cpu", H=540, W=960, n=4, ss=2)
     root = tmp_path_factory.mktemp("boards")
     for cam, name in enumerate(("cam1", "cam2")):
         (root / name).mkdir()
@@ -132,8 +124,7 @@ def test_calibrate_stereo_rig_stage(boards):
     out = stages.calibrate_stereo_rig(str(root / "cam1"), str(root / "cam2"), device="cpu")
     assert set(out) == {"K1", "dist1", "K2", "dist2", "R", "T", "rms", "num_pairs"}
     assert out["num_pairs"] == 4 and out["rms"] < 0.5
-    smoke = _smoke()
-    r_err, t_err = smoke.pose_errors(out["R"], out["T"], cs["R"], cs["T"])
+    r_err, t_err = synth.pose_errors(out["R"], out["T"], cs["R"], cs["T"])
     assert r_err < 0.2 and t_err < 3.0
     np.testing.assert_allclose(out["K2"], cs["K"], rtol=0.02, atol=1.0)
 
@@ -278,9 +269,8 @@ def test_disparity_cache_hit_returns_the_miss(tmp_path):
 def test_cli_report_on_a_raw_pair(tmp_path, capsys):
     """report on the rendered raw pair of tests/test_torch_pipeline.py: every
     section, the images, the embedded viewer and the metrics table."""
-    smoke = _smoke()
     K = np.array([[200.0, 0.0, 160.0], [0.0, 200.0, 120.0], [0.0, 0.0, 1.0]])
-    left, right = smoke.render_pair(torch, K, smoke.rotation_about((0.2, 1.0, 0.1), 2.0),
+    left, right = synth.render_pair(K, synth.rotation_about((0.2, 1.0, 0.1), 2.0),
                                     np.array([-0.3, 0.02, 0.01]), 240, 320, seed=1)
     folder = tmp_path / "pair"
     folder.mkdir()

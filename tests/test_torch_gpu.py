@@ -23,7 +23,11 @@ against float64 and the LK refinement of matches. Calibration (torch ops,
 no kernel of its own) is held to its CPU run at chip_smoke.py phase 9's
 bounds: the saddle response, the candidates, the corners of rendered boards
 (1e-3 px), homographies, Zhang's K and poses, calibrate_camera and
-calibrate_stereo (1e-8 relative); its LM makes no host sync.
+calibrate_stereo (1e-8 relative); its LM makes no host sync. The streaming
+path: nvJPEG against PIL, the prefetch loader's side-stream batches against
+synchronous copies (no host sync in the consumer's loop), stream_reconstruct
+against the per-pair path, and the bench's config 1 step (one cost launch,
+equal to its CPU run).
 """
 
 import importlib.util
@@ -34,6 +38,7 @@ import pytest
 import torch
 
 from stereo_reconstruction_cv_tpu_torch import native
+from stereo_reconstruction_cv_tpu_torch.ops import disparity as DP
 from stereo_reconstruction_cv_tpu_torch.ops import epipolar as EP
 from stereo_reconstruction_cv_tpu_torch.ops import features as FT
 from stereo_reconstruction_cv_tpu_torch.ops import geometry as G
@@ -47,6 +52,7 @@ from stereo_reconstruction_cv_tpu_torch.ops.cuda import sgm as SK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import speckle as SPK
 from stereo_reconstruction_cv_tpu_torch.pipeline import stages
 from stereo_reconstruction_cv_tpu_torch.tools import micro_i16
+from stereo_reconstruction_cv_tpu_torch.utils import synth
 
 pytestmark = pytest.mark.gpu
 
@@ -761,11 +767,10 @@ SCENE_T = np.array([-0.3, 0.02, 0.01])
 
 
 def _scene(dev, H=240, W=320):
-    smoke = _smoke()
     K = SCENE_K.copy()
     K[:2] *= W / 320.0
-    R = smoke.rotation_about((0.2, 1.0, 0.1), 2.0)
-    left, right = smoke.render_pair(torch, K, R, SCENE_T, H, W, seed=2, device=dev)
+    R = synth.rotation_about((0.2, 1.0, 0.1), 2.0)
+    left, right = synth.render_pair(K, R, SCENE_T, H, W, seed=2, device=dev)
     return K, R, left, right
 
 
@@ -788,7 +793,7 @@ def _robust_inputs():
     rng = np.random.default_rng(9)
     K = np.array([[820.0, 0.0, 330.0], [0.0, 810.0, 245.0], [0.0, 0.0, 1.0]])
     X = np.stack([rng.uniform(-2, 2, 220), rng.uniform(-1.5, 1.5, 220), rng.uniform(3, 8, 220)], -1)
-    R = _smoke().rotation_about((0.1, 1.0, -0.2), 5.0)
+    R = synth.rotation_about((0.1, 1.0, -0.2), 5.0)
     t = np.array([-1.0, 0.1, 0.05])
 
     def proj(P):
@@ -948,7 +953,7 @@ def calib_set():
     rendered on the card (None without one)."""
     if not torch.cuda.is_available():
         return None
-    return _smoke().calibration_set(torch, torch.device("cuda"), H=1080, W=1920, n=3)
+    return synth.calibration_set(torch.device("cuda"), H=1080, W=1920, n=3)
 
 
 def test_chessboard_detection_on_the_card_matches_the_cpu(dev, calib_set):
@@ -980,12 +985,11 @@ def _calib_views(rng, V, noise=0.3):
     distortion, with camera 2 of phase 7's rig; float64 CPU tensors."""
     from stereo_reconstruction_cv_tpu_torch.calib import zhang as Z
 
-    smoke = _smoke()
-    K = torch.from_numpy(smoke.K_4K)
-    dist = torch.tensor(smoke.CALIB_DIST, dtype=torch.float64)
+    K = torch.from_numpy(synth.K_4K)
+    dist = torch.tensor(synth.CALIB_DIST, dtype=torch.float64)
     obj = Z.build_object_points(9, 7, 0.03)
-    poses = smoke.board_poses(torch, V, smoke.K_4K, 3840, 2160)
-    R_rig, T_rig = smoke.rotation_about(smoke.SCENE_AXIS, smoke.SCENE_DEG), np.array(smoke.SCENE_T)
+    poses = synth.board_poses(V, synth.K_4K, 3840, 2160)
+    R_rig, T_rig = synth.rotation_about(synth.SCENE_AXIS, synth.SCENE_DEG), np.array(synth.SCENE_T)
     out = []
     for cam in (0, 1):
         rv = torch.stack([G.matrix_to_rodrigues(torch.from_numpy(R_rig @ R if cam else R))
@@ -1045,3 +1049,132 @@ def test_lm_makes_no_host_sync_on_the_card(dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(torch.isfinite(theta).all())
+
+
+# ---------------------------------------------------------------------------
+# The streaming path and the bench's config 1 on the card
+# ---------------------------------------------------------------------------
+
+# Largest difference in grey levels between nvJPEG's frames and PIL's
+# (libjpeg-turbo's) on the same noise image with no chroma subsampling: the
+# luma planes differ only by their inverse DCTs' rounding, RGB also by the
+# colour conversion's (4 levels on the card). With 4:2:0 chroma their
+# upsamplers differ too, by up to 36 levels in RGB; the luma plane, all the
+# streaming path reads, is never subsampled.
+NVJPEG_PIL_LEVELS = {True: 2, False: 4}  # gray, RGB
+
+
+def _jpeg_pairs(root, n, H, W, seed=0):
+    """n pairs of distinct random-texture gray JPEGs (PIL, quality 95)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    paths = []
+    for k in range(n):
+        row = []
+        for side in "lr":
+            img = rng.integers(0, 256, (H, W), dtype=np.uint8)
+            path = root / f"pair{k}_{side}.jpg"
+            Image.fromarray(img).save(path, quality=95)
+            row.append(str(path))
+        paths.append(tuple(row))
+    return paths
+
+
+def test_nvjpeg_decode_against_pil_and_bad_bytes(dev, tmp_path):
+    """nvJPEG's gray and RGB frames against PIL's decode of the same file
+    (4:4:4, within NVJPEG_PIL_LEVELS; gray against libjpeg's own luma, PIL's
+    draft mode "L"), and bytes that are no JPEG raise DataError."""
+    from PIL import Image
+
+    from stereo_reconstruction_cv_tpu_torch.errors import DataError
+
+    rng = np.random.default_rng(3)
+    rgb = rng.integers(0, 256, (120, 200, 3), dtype=np.uint8)
+    for mode, img in (("L", rgb[..., 0]), ("RGB", rgb)):
+        path = tmp_path / f"{mode}.jpg"
+        Image.fromarray(img).save(path, quality=95, subsampling=0)
+        for gray in (True, False):
+            got = native.load_image(str(path), gray, "nvjpeg")
+            with Image.open(path) as im:
+                if gray:
+                    im.draft("L", im.size)  # libjpeg's own luma, as nvJPEG's Y
+                want = np.asarray(im.convert("L" if gray else "RGB"))
+            assert got.shape == want.shape
+            err = int(np.abs(got.astype(int) - want.astype(int)).max())
+            assert err <= NVJPEG_PIL_LEVELS[gray], (mode, gray, err)
+    with pytest.raises(DataError):
+        native.decode_jpeg(b"\x00not a jpeg" * 20, True, "nvjpeg")
+
+
+def test_prefetch_loader_side_stream_frames_equal_synchronous_copies(dev, tmp_path):
+    """Batches copied on the loader's side stream and handed over through
+    its events equal each frame decoded and copied synchronously, and the
+    consumer's loop makes no host sync (sync debug mode "error")."""
+    from stereo_reconstruction_cv_tpu_torch.parallel.prefetch import PrefetchLoader
+
+    paths = _jpeg_pairs(tmp_path, 5, 1080, 1920)
+    got = []
+    with PrefetchLoader(paths, batch_size=2, prefetch=2, decoder="nvjpeg", device=dev) as loader:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for left, right in loader:
+                got.append((left * 1, right * 1))  # consumer work on its own stream
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert [l.shape[0] for l, _ in got] == [2, 2, 1]
+    assert loader.images_decoded == 10 and loader.h2d_copies == 3
+    frames = [f for l, r in got for f in zip(l, r)]
+    for row, (l, r) in zip(paths, frames):
+        for p, t in zip(row, (l, r)):
+            assert torch.equal(t, torch.from_numpy(native.load_image(p, True, "nvjpeg")).to(dev))
+
+
+def test_stream_reconstruct_on_the_card_equals_the_per_pair_path(dev, tmp_path):
+    """Three rendered pairs (shifted copies of one) through the streamed
+    path give the clouds of sgbm_disparity -> reproject_image_to_3d on the
+    same decoded frames, bit for bit."""
+    from PIL import Image
+
+    from stereo_reconstruction_cv_tpu_torch.config import SGBMConfig
+    from stereo_reconstruction_cv_tpu_torch.io.ply import read_ply
+    from stereo_reconstruction_cv_tpu_torch.parallel.streaming import stream_reconstruct
+
+    left, right = synth.render_pair(np.array([[150.0, 0, 80], [0, 150.0, 48], [0, 0, 1]]),
+                                    np.eye(3), (-0.14, 0, 0), 96, 160, seed=1)
+    paths = []
+    for k in range(3):
+        row = []
+        for side, img in zip("lr", (left, right)):
+            path = tmp_path / f"p{k}{side}.jpg"
+            Image.fromarray(np.roll(img.numpy(), 7 * k, 0)).save(path, quality=95)
+            row.append(str(path))
+        paths.append(tuple(row))
+    Q = np.array([[1, 0, 0, -80.0], [0, 1, 0, -48.0], [0, 0, 0, 150.0], [0, 0, 1 / 0.14, 0]])
+    cfg = SGBMConfig(num_disparities=16, num_directions=8, speckle_window_size=0)
+    clouds = stream_reconstruct(paths, Q, cfg, str(tmp_path / "out"), batch_size=2,
+                                decoder="nvjpeg", device=dev)
+    Qt = torch.as_tensor(Q, dtype=torch.float32, device=dev)
+    for row, path in zip(paths, clouds):
+        l, r = (torch.from_numpy(native.load_image(p, True, "nvjpeg")).to(dev) for p in row)
+        d, v = DP.sgbm_disparity(l, r, cfg)
+        pts = G.reproject_image_to_3d(d, Qt)
+        want = pts[v & torch.isfinite(pts).all(-1) & (d > 0)].cpu().numpy()
+        got, _ = read_ply(path)
+        assert len(want) > 0
+        np.testing.assert_array_equal(got, want)
+
+
+def test_config1_step_launches_cost_volume_once_and_equals_the_cpu(dev):
+    from stereo_reconstruction_cv_tpu_torch import benchmarks as B
+
+    l, r = B._textured((200, 64), 5, 4, torch.device("cpu"))
+    counts = (CK.launches, SK.launches, LK.launches, SPK.launches)
+    before = [dict(c) for c in counts]
+    disp, valid = B.sad_wta_step(l.to(dev), r.to(dev), 16)
+    torch.cuda.synchronize()
+    grew = {k: c[k] - b[k] for c, b in zip(counts, before) for k in c if c[k] != b[k]}
+    assert grew == {"cost_volume": 1}
+    disp_h, valid_h = B.sad_wta_step(l, r, 16)
+    assert torch.equal(disp.cpu(), disp_h) and torch.equal(valid.cpu(), valid_h)

@@ -12,9 +12,6 @@ its robust fits and pose recovery run under jax.jit, as its own tests run
 them (tests/test_epipolar.py), for the fixture's duration.
 """
 
-import importlib.util
-import pathlib
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,15 +30,11 @@ from stereo_reconstruction_cv_tpu_torch.ops import features as FT
 from stereo_reconstruction_cv_tpu_torch.ops import matching as M
 from stereo_reconstruction_cv_tpu_torch.ops import sift as SIFT
 from stereo_reconstruction_cv_tpu_torch.pipeline import stages
-
-ROOT = pathlib.Path(__file__).resolve().parent.parent
-_spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-smoke = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(smoke)
+from stereo_reconstruction_cv_tpu_torch.utils import synth
 
 H, W = 240, 320
 K = np.array([[200.0, 0.0, 160.0], [0.0, 200.0, 120.0], [0.0, 0.0, 1.0]])
-R_TRUE = smoke.rotation_about((0.2, 1.0, 0.1), 2.0)
+R_TRUE = synth.rotation_about((0.2, 1.0, 0.1), 2.0)
 T_TRUE = np.array([-0.3, 0.02, 0.01])
 BASELINE = float(np.linalg.norm(T_TRUE))
 CFG = RC.PipelineConfig(match=RC.MatchConfig(max_keypoints=1024),
@@ -59,7 +52,7 @@ def one_torch_thread():
 
 @pytest.fixture(scope="module")
 def pair():
-    left, right = smoke.render_pair(torch, K, R_TRUE, T_TRUE, H, W, seed=0)
+    left, right = synth.render_pair(K, R_TRUE, T_TRUE, H, W, seed=0)
     return left.numpy(), right.numpy()
 
 

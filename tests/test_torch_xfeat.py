@@ -15,7 +15,6 @@ the .npz the port reads (JAX, flax and orbax needed):
 """
 
 import functools
-import importlib.util
 import os
 import pathlib
 import sys
@@ -37,6 +36,7 @@ from stereo_reconstruction_cv_tpu_torch.models import checkpoint as CKPT
 from stereo_reconstruction_cv_tpu_torch.models import xfeat as PX
 from stereo_reconstruction_cv_tpu_torch.ops import refine as PRF
 from stereo_reconstruction_cv_tpu_torch.pipeline import stages
+from stereo_reconstruction_cv_tpu_torch.utils import synth
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 REF_CKPT = str(ROOT / "checkpoints" / "xfeat_v4")
@@ -72,13 +72,6 @@ def export_xfeat_npz(ckpt_dir: str, out: str) -> dict:
 # Fixtures: the reference's model and weights, the rendered scene
 # ---------------------------------------------------------------------------
 
-def _smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
 @pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
     """Small tensor ops run fastest on one thread here; restored after."""
@@ -113,9 +106,8 @@ def raw_pair(tmp_path_factory):
     quality 95), loaded as (H, W) uint8, and its rotation."""
     from PIL import Image
 
-    smoke = _smoke()
-    R = smoke.rotation_about((0.2, 1.0, 0.1), 2.0)
-    left, right = smoke.render_pair(torch, RAW_K, R, RAW_T, 240, 320, seed=1)
+    R = synth.rotation_about((0.2, 1.0, 0.1), 2.0)
+    left, right = synth.render_pair(RAW_K, R, RAW_T, 240, 320, seed=1)
     folder = tmp_path_factory.mktemp("raw")
     Image.fromarray(left.numpy()).convert("RGB").save(folder / "img1.jpg", quality=95)
     Image.fromarray(right.numpy()).convert("RGB").save(folder / "img2.jpg", quality=95)
