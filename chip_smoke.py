@@ -102,16 +102,29 @@ Phases:
                stream_reconstruct on three 4K JPEG pairs, its clouds equal
                to sgbm_disparity -> reproject_image_to_3d on the same
                decoded frames (bit-equal, or within F32_RTOL)
-Each main path of phases 4, 4b, 5, 7, 8, 9 and 10 (config 2 with device,
+  11. train    XFeat training (train_phase): (a) two train_steps from the
+               v4 weights at 4 x 128^2 on the card against the CPU with the
+               same draws (loss, gradients, parameters); (b) train() at the
+               reference's defaults (batch 16, crop 256, lr 2e-3, warmup
+               200) from init_params, 300 steps on 8 rendered 4K JPEGs:
+               ms/step, images/s, peak memory, the loss curve, the idle
+               share over 5 steps; (c) the stereo pool of two rendered 4K
+               raw pairs (rectify_pair, then SGBM at 64 disparities and 5
+               paths), 100 stereo=True steps from xfeat_v4.npz, the result
+               loaded by load_model and served by geometry --learned
+               --model on phase 7's pair, and the warp-check true rate
+               (tools/xfeat_warpcheck.py) of v4 and of the result
+Each main path of phases 4, 4b, 5, 7, 8, 9, 10 and 11 (config 2 with device,
 host and no speckle, the 720p CLI chain, the two tools, the 4K pair -> PLY,
 config 3's chain, the raw pair's dense chain, config 4's step, learned
 geometry, the calibration and config 3's chain at the anchor and the
 calibrated K, each bench config: 1 the cost kernel alone, 2 and 3 the dense
 and speckle kernels, 4 none, 5 the dense kernels and no speckle one; the
-streamed clouds) runs with the launch counts zeroed just before it and read
-just after: every kernel it should run must have launched in it, a path
-with the host speckle must launch no speckle kernel, and the learned paths
-and the calibration none. The kernels line sums the paths' counts; each
+streamed clouds; the stereo pool's build and the two trainings) runs with
+the launch counts zeroed just before it and read just after: every kernel
+it should run must have launched in it, a path with the host speckle must
+launch no speckle kernel, and the learned paths, the calibration and the
+trainings none. The kernels line sums the paths' counts; each
 kernel's bound there is the larger of its bytes over the card's
 memory rate and its operations over its peak rate (PEAK_BYTES_S,
 PEAK_OPS_S), at the inputs its time was taken on. To compare another
@@ -335,6 +348,11 @@ def profile_idle(torch, label: str, fn) -> None:
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
+    idle_report(torch, label, prof, wall_us)
+
+
+def idle_report(torch, label: str, prof, wall_us: float) -> None:
+    """profile_idle's report of a finished torch.profiler run over wall_us."""
     spans = sorted(
         (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA
@@ -896,6 +914,259 @@ def bench_phase(torch, dev, main_path, dense, speckle):
         raise AssertionError(f"stream_reconstruct: relative error {worst} > {F32_RTOL}")
 
 
+# Phase 11: (a) the card against the CPU on TRAIN_CHECK = (batch, crop) with
+# the v4 weights; (b) the reference's default configuration (batch 16, crop
+# 256, lr 2e-3, warmup 200) from init_params for TRAIN_STEPS steps on
+# TRAIN_IMAGES rendered 4K JPEGs, the median step after TRAIN_WARM, the
+# idle share over PROFILE_STEPS; (c) WARM_START_STEPS of stereo=True from
+# the v4 weights on a pool of two rendered 4K raw pairs.
+TRAIN_CHECK = (4, 128)
+TRAIN_BATCH, TRAIN_CROP, TRAIN_FRAME = 16, 256, (2160, 3840)
+TRAIN_STEPS, TRAIN_WARM, TRAIN_IMAGES, PROFILE_STEPS = 300, 10, 8, 5
+WARM_START_STEPS = 100
+TRAIN_LOSS_RTOL, TRAIN_TENSOR_TOL = 1e-5, 1e-4  # tests/test_torch_xfeat_train.py's
+TRAIN_MOVE_TOL = 0.02  # parameter moves, of the summed lr (move_error)
+
+
+def move_error(got: dict, want: dict, grads: list, lr_sum: float, floor: float = 1e-2):
+    """Parameters after Adam steps, got against want ({name: tensor}): (the
+    largest |difference| over the summed learning rate on the covered
+    entries, the share of entries covered, the largest over all entries,
+    which Adam bounds by 2). Adam scales each gradient entry by its own RMS,
+    so an entry near zero turns its gradient's error (up to
+    TRAIN_TENSOR_TOL of the tensor's largest) into a move of up to the lr;
+    the comparison covers the entries whose gradient (grads: one {name:
+    tensor} a step) is at least `floor` of its tensor's largest at every
+    step, where the moves agree to a few percent of the lr."""
+    worst, worst_all, covered, total = 0.0, 0.0, 0, 0
+    for name, g in got.items():
+        keep = None
+        for step in grads:
+            k = step[name].abs() >= floor * step[name].abs().max()
+            keep = k if keep is None else keep & k
+        diff = (g - want[name]).abs()
+        if keep.any():
+            worst = max(worst, float(diff[keep].max()) / lr_sum)
+        worst_all = max(worst_all, float(diff.max()) / lr_sum)
+        covered += int(keep.sum())
+        total += keep.numel()
+    return worst, covered / total, worst_all
+
+
+def train_phase(torch, dev, host, main_path, dense, speckle, pair4k):
+    """Phase 11: XFeat training on the card. (a) two train_steps from the v4
+    weights on the card and on `host` with the same draws: the loss, the
+    first step's gradients and the parameters after two within the CPU
+    test's tolerances; (b) train() at the reference's defaults from
+    init_params on rendered 4K JPEGs: ms/step (synchronised, median after
+    TRAIN_WARM steps, min, max), images/s, peak memory, the loss curve
+    (finite, falling), the idle share over its last PROFILE_STEPS steps;
+    (c) the stereo pool of two rendered 4K raw pairs under main_path (every
+    dense and speckle kernel), the pool's labels of one rectified pair on
+    the card bit-equal to the CPU's, stereo=True training from xfeat_v4.npz
+    under main_path (no kernel), the result loaded by load_model and served
+    by `geometry --learned --model` on pair4k = (left, right, K, R, T)
+    (phase 7's), and the warp-check true rate of v4 and of the result.
+    Raises AssertionError on a failed check."""
+    import io
+
+    from stereo_reconstruction_cv_tpu_torch import cli
+    from stereo_reconstruction_cv_tpu_torch.io.image import save_image
+    from stereo_reconstruction_cv_tpu_torch.models import checkpoint as XCK
+    from stereo_reconstruction_cv_tpu_torch.models import xfeat as XF
+    from stereo_reconstruction_cv_tpu_torch.models import xfeat_train as XT
+    from stereo_reconstruction_cv_tpu_torch.pipeline import stages
+    from stereo_reconstruction_cv_tpu_torch.tools import xfeat_warpcheck as WC
+    from stereo_reconstruction_cv_tpu_torch.utils.synth import (K_4K, SCENE_T, SEED, pose_errors,
+                                                              render_pair, rotation_about)
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    sync = torch.cuda.synchronize
+
+    def v4_trainable(device):
+        model = XF.XFeatNet().to(device)
+        model.load_state_dict(XCK.load_params(XCK.default_checkpoint(), device))
+        return model
+
+    # (a) the card against the CPU: two steps, the same draws
+    B, crop = TRAIN_CHECK
+    gen = torch.Generator().manual_seed(SEED)
+    K = K_4K.copy()
+    K[:2] *= crop / 960.0
+    K[:2, 2] = crop / 2.0
+    imgs = torch.stack([render_pair(K, np.eye(3), SCENE_T, crop, crop, seed=SEED + i)[0]
+                        for i in range(B)]).to(torch.float32)
+    draws = [XF.draw_warps(gen, B) for _ in range(2)]
+    runs = []
+    for device in (host, dev):
+        model = v4_trainable(device)
+        state = XF.create_train_state(model, XT.warmup_cosine(1e-3, 1, 10), max_norm=1.0)
+        losses, grads = [], []
+        for d in draws:
+            losses.append(float(XF.train_step(state, imgs.to(device),
+                                              XF.WarpDraws(*(t.to(device) for t in d)))))
+            grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
+        runs.append((losses, grads, {n: p.detach().cpu() for n, p in model.named_parameters()}))
+    (lh, gh, ph), (lc, gc, pc) = runs
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    grad_err = max(float((c[n] - h[n]).abs().max() / h[n].abs().max())
+                   for c, h in zip(gc, gh) for n in h)
+    move, share, move_all = move_error(pc, ph, gh, 1e-3)
+    log(f"[train] ({card}) (a) two train_steps at {B} x {crop}^2 from v4 (lr 0, then 1e-3), card "
+        f"vs CPU: losses {lc} vs {lh} (max relative error {loss_err:.3e}); (clipped) gradients "
+        f"within {grad_err:.3e} of each tensor's largest; parameters: moves within {move:.3e} of "
+        f"the lr on the {share:.3f} of entries whose gradients are >= 1e-2 of their tensor's "
+        f"largest, all within {move_all:.3e}")
+    if not (loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_TENSOR_TOL
+            and move <= TRAIN_MOVE_TOL and move_all <= 2.0):
+        raise AssertionError(f"(a) card vs CPU: loss {loss_err}, gradients {grad_err}, "
+                             f"moves {move} ({share} of entries), all {move_all}")
+
+    with tempfile.TemporaryDirectory() as td:
+        # (b) the reference's default configuration on rendered 4K JPEGs
+        folder = os.path.join(td, "images")
+        os.makedirs(folder)
+        t0 = time.perf_counter()
+        for i in range(TRAIN_IMAGES // 2):
+            R = rotation_about((0.2, 1.0, 0.1), 3.0 * i)
+            for side, img in zip("lr", render_pair(K_4K, R, SCENE_T, *TRAIN_FRAME, seed=SEED + 20 + i,
+                                                   device=dev)):
+                save_image(os.path.join(folder, f"v{i}{side}.jpg"), img.cpu().numpy(), quality=95)
+        log(f"[train] (b) {TRAIN_IMAGES} rendered {TRAIN_FRAME[1]}x{TRAIN_FRAME[0]} JPEGs written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        from torch.profiler import ProfilerActivity, profile
+
+        # The last PROFILE_STEPS steps run under the profiler (the idle
+        # share); ms/step is read over the warm steps before them.
+        stamps, step_losses, prof_t0 = [], [], []
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof_from = TRAIN_STEPS - PROFILE_STEPS - 1
+
+        def on_step(it, loss):
+            sync()
+            stamps.append(time.perf_counter())
+            step_losses.append(loss)
+            if it == prof_from:
+                prof.start()
+                prof_t0.append(time.perf_counter())
+            elif it == TRAIN_STEPS - 1:
+                prof.stop()
+
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        batch, size = TRAIN_BATCH, TRAIN_CROP
+        out = io.StringIO()
+        with main_path("train() at the reference's defaults", (), tuple(KERNELS)), \
+                contextlib.redirect_stdout(out):
+            t0 = time.perf_counter()
+            XT.train([folder], steps=TRAIN_STEPS, batch=batch, crop=size, lr=2e-3, warmup=200,
+                     output=os.path.join(td, "scratch_w"), log_every=50, device="cuda",
+                     on_step=on_step)
+            wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - mem0
+        walls = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])][TRAIN_WARM - 1:-PROFILE_STEPS]
+        curve = [float(v) for v in step_losses]
+        med = statistics.median(walls)
+        log(f"[train] ({card}) (b) train(): {TRAIN_STEPS} steps, batch {batch}, crop {size}, "
+            f"in {wall:.2f} s; ms/step median {med:.3f} (min {min(walls):.3f}, max "
+            f"{max(walls):.3f}) over steps {TRAIN_WARM}-{prof_from}, synchronised; "
+            f"{batch / med * 1e3:.1f} images/s (2 views each); peak device memory "
+            f"{peak / 2**30:.3f} GiB above {mem0 / 2**30:.3f} GiB held")
+        log("[train] (b) loss every 25 steps: " + json.dumps([round(v, 4) for v in curve[::25]]
+                                                            + [round(curve[-1], 4)]))
+        first, last = statistics.mean(curve[:10]), statistics.mean(curve[-10:])
+        log(f"[train] (b) mean loss of the first 10 steps {first:.4f}, of the last 10 {last:.4f}")
+        if not all(math.isfinite(v) for v in curve) or not last < first:
+            raise AssertionError(f"(b) loss curve not finite and falling: {first} -> {last}")
+        idle_report(torch, f"({card}) train() steps {prof_from + 1}-{TRAIN_STEPS - 1}, batch "
+                    f"{batch}, crop {size}", prof, 1e6 * (stamps[-1] - prof_t0[0]))
+
+        # (c) the stereo pool and a stereo warm start from v4
+        left7, right7, K7, R7, T7 = pair4k
+        pairs = []
+        for s in range(2):
+            pf = os.path.join(td, f"pair{s}")
+            os.makedirs(pf)
+            for name, img in zip(("img1.jpg", "img2.jpg"),
+                                 render_pair(K_4K, rotation_about((0.2, 1.0, 0.1), 2.0 + s), SCENE_T,
+                                             *TRAIN_FRAME, seed=SEED + 30 + s, device=dev)):
+                save_image(os.path.join(pf, name), img.cpu().numpy(), quality=95)
+            pairs.append(pf)
+        with main_path("stereo pool build (2 rendered 4K raw pairs)", dense + speckle):
+            sync()
+            t0 = time.perf_counter()
+            spool = XT.build_stereo_pool(pairs, cache_dir=td, device="cuda")
+            sync()
+            pool_s = time.perf_counter() - t0
+        log(f"[train] ({card}) (c) stereo pool: {tuple(spool[0].shape)} in {pool_s:.2f} s, valid "
+            f"share {float(spool[3].mean()):.4f}")
+        if not float(spool[3].mean()) > 0.3:
+            raise AssertionError(f"(c) stereo pool valid share {float(spool[3].mean())}")
+        # The pool's labels on the card (the kernels) against the CPU (their
+        # plain versions) on one rectified pair: bit-equal.
+        rect = stages.rectify_pair(pairs[0], baseline=XT.POOL_BASELINE, camera_matrix=XT.POOL_K,
+                                   with_visualizations=False, device=dev)
+        lr_pair = (rect["left_rectified"], rect["right_rectified"])
+        sync()
+        t0 = time.perf_counter()
+        got = XT.stereo_labels(*lr_pair)
+        sync()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = XT.stereo_labels(*(t.cpu() for t in lr_pair))
+        t_cpu = time.perf_counter() - t0
+        diff = [int((g.cpu() != w).sum()) for g, w in zip(got, want)]
+        log(f"[train] (c) stereo_labels of pair 0, {tuple(lr_pair[0].shape)} -> "
+            f"{tuple(got[2].shape)} at 64 disparities, 5 paths: card {1e3 * t_card:.2f} ms vs "
+            f"CPU {1e3 * t_cpu:.2f} ms; unequal pixels (left, right, disparity, valid) {diff}")
+        if any(diff):
+            raise AssertionError(f"(c) stereo_labels card vs CPU: {diff} unequal pixels")
+        del rect, lr_pair, got, want
+        out_w = os.path.join(td, "warm_start.npz")
+        with main_path("stereo=True training from xfeat_v4.npz", (), tuple(KERNELS)), \
+                contextlib.redirect_stdout(io.StringIO()):
+            sync()
+            t0 = time.perf_counter()
+            hist = XT.train([folder], steps=WARM_START_STEPS, batch=batch, crop=size,
+                            output=out_w, log_every=25, stereo=True,
+                            init_from=XCK.default_checkpoint(), stereo_pairs=pairs,
+                            cache_dir=td, device="cuda")
+            warm_s = time.perf_counter() - t0
+        log(f"[train] ({card}) (c) {WARM_START_STEPS} stereo steps from v4 in {warm_s:.2f} s "
+            f"({1e3 * warm_s / WARM_START_STEPS:.2f} ms/step with the pool load): losses "
+            + json.dumps([(i, round(v, 4)) for i, v in hist]))
+        if not all(math.isfinite(v) for _, v in hist):
+            raise AssertionError(f"(c) stereo losses {hist}")
+        XCK.load_model(out_w, dev)
+        pf = os.path.join(td, "phase7")
+        os.makedirs(pf)
+        save_image(os.path.join(pf, "img1.jpg"), left7.cpu().numpy(), quality=95)
+        save_image(os.path.join(pf, "img2.jpg"), right7.cpu().numpy(), quality=95)
+        np.savez(os.path.join(td, "K.npz"), K=K7)
+        base = float(np.linalg.norm(T7))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["geometry", pf, "--learned", "--model", out_w, "--baseline", str(base),
+                           "--calibration", os.path.join(td, "K.npz"), "--device", "cuda"])
+        log(f"[train] (c) geometry --learned --model warm_start.npz on phase 7's pair: exit {rc}, "
+            + buf.getvalue().strip().splitlines()[-1])
+        if rc != 0:
+            raise AssertionError(f"(c) geometry --learned --model exit {rc}")
+        img = WC.rendered_image(*TRAIN_FRAME, device=dev)
+        for name, ckpt in (("v4", XCK.default_checkpoint()), ("warm start", out_w)):
+            geo = stages.estimate_geometry(pf, base, K7, method="learned", checkpoint=ckpt,
+                                           device="cuda")
+            r_err, t_err = pose_errors(geo["Rotation Matrix"], geo["Translation Vector"], R7, T7)
+            rates = WC.warp_true_rate(ckpt, img, device="cuda")
+            log(f"[train] ({card}) (c) {name}: learned pose on phase 7's pair R {r_err:.4f} deg, "
+                f"t {t_err:.4f} deg ({geo['num_matches']} matches); warp-check true rate "
+                + " ".join(f"{r:.4f} (n={n})" for r, n in rates))
+            if not all(n > 0 for _, n in rates):
+                raise AssertionError(f"(c) {name}: warp check found no match {rates}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1085,7 +1356,11 @@ def main() -> int:
     @phase("3 kernels vs plain")
     def _():
         rng = np.random.default_rng(SEED)
-        cases = [("720p", 720, 1280, 128, 0, (5, 8)), ("ragged", 721, 1283, 96, 5, (8, 5))]
+        # "pool": the training stereo pool's SGBM (xfeat_train.stereo_labels:
+        # a 4K pair downscaled to 1280 wide, 64 disparities, 5 paths), whose
+        # K = 2 sweep instances no other case runs.
+        cases = [("720p", 720, 1280, 128, 0, (5, 8)), ("ragged", 721, 1283, 96, 5, (8, 5)),
+                 ("pool", 720, 1280, 64, 0, (5,))]
         for label, H, W, D, md, dirs in cases:
             planes = planes_for(rng, H, W, D, md)
             C = CK.cost_volume(*planes, D, md, 11)
@@ -1875,6 +2150,13 @@ def main() -> int:
     @phase("10 bench")
     def _():
         bench_phase(torch, dev, main_path, dense, speckle)
+
+    # ------------------------------------------------------------ 11. train
+    @phase("11 train")
+    def _():
+        if "pair" not in raw4k:
+            raise AssertionError("phase 7 left no raw 4K pair")
+        train_phase(torch, dev, torch.device("cpu"), main_path, dense, speckle, raw4k["pair"])
 
     if failures:
         log(f"FAILED phases: {failures}")

@@ -21,6 +21,11 @@
                CONFIGS (default 2 1 4 3 5, the headline again last); exits 1
                if a config failed. --decoder names config 5's JPEG decoder,
                --scale shrinks every frame (a quick run on the CPU)
+  train-features  image folders (*.jpg) -> self-supervised XFeat training
+               (random crops, homographic pairs, warmup-cosine Adam);
+               --output W writes W.npz, which --model serves. Without a
+               folder: the reference's calibration boards and pairs d1-d3
+               under reference/ (absent from the repository: exits 1)
 
 A pair folder holds img1.jpg (left) and img2.jpg (right). --calibration
 reads K (and, for rectify --undistort, dist) from an .npz; without it the
@@ -292,6 +297,19 @@ def cmd_bench(args) -> int:
                            scale=args.scale)
 
 
+def cmd_train_features(args) -> int:
+    from stereo_reconstruction_cv_tpu_torch.models import xfeat_train as XT
+
+    try:
+        XT.train(folders=args.folder or list(XT.DEFAULT_FOLDERS), steps=args.steps,
+                 batch=args.batch, crop=args.size, lr=args.lr, output=args.output,
+                 max_images=args.max_images, device=args.device)
+    except FileNotFoundError as e:
+        print(e, file=sys.stderr)
+        return 1
+    return 0
+
+
 def _validate_reference_ranges(args) -> None:
     """The reference GUI's input checks: a bad value warns and falls back to
     the default (baseline > 0, else 0.1; contrast threshold in [0, 0.1],
@@ -384,6 +402,17 @@ def main(argv=None) -> int:
                    help="config 5's JPEG decoder (default: nvjpeg)")
     b.add_argument("--scale", type=float, default=1.0,
                    help="frame sizes times this (default 1: the reference's sizes)")
+
+    tf = verb("train-features", cmd_train_features, "self-supervised XFeat training", rig=False,
+              inputs=())
+    tf.add_argument("folder", nargs="*",
+                    help="image folders (default: the reference's boards and d1-d3 under reference/)")
+    tf.add_argument("--steps", type=int, default=5000)
+    tf.add_argument("--size", type=int, default=256, help="crop size")
+    tf.add_argument("--batch", type=int, default=16)
+    tf.add_argument("--lr", type=float, default=2e-3)
+    tf.add_argument("--max-images", type=int, default=64)
+    tf.add_argument("--output", default="xfeat_ckpt", help="weights file (.npz appended)")
 
     v = sub.add_parser("view", help="PLY -> standalone HTML viewer")
     v.add_argument("cloud")

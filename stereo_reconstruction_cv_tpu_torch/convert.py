@@ -11,7 +11,8 @@ net's weights. This module converts them:
   verb writes (key ``Q``; ``R1, R2, P1, P2`` where present) into the port's
   ``RectifyResult`` of float64 tensors;
 - ``xfeat_state_dict``: the reference's XFeatNet parameters, flattened to
-  ``{flax path: array}``, into the port's ``XFeatNet`` state_dict.
+  ``{flax path: array}``, into the port's ``XFeatNet`` state_dict, and
+  ``xfeat_flat_params`` back (what the port's training saves).
 """
 
 from __future__ import annotations
@@ -116,4 +117,15 @@ def xfeat_state_dict(flat) -> dict:
             raise ValueError(f"{path}: shape {np.shape(flat[path])} does not fit {name} "
                              f"{want[name]}")
         out[name] = torch.tensor(arr)
+    return out
+
+
+def xfeat_flat_params(state_dict) -> dict:
+    """The inverse of xfeat_state_dict: the port's XFeatNet state_dict ->
+    {flax path: float32 numpy array}, kernels OIHW -> HWIO, LayerNorm
+    weight -> scale."""
+    out = {}
+    for path, name in _xfeat_names().items():
+        arr = state_dict[name].detach().to("cpu", torch.float32).numpy()
+        out[path] = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr
     return out

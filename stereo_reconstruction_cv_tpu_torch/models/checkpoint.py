@@ -47,6 +47,18 @@ def load_params(path: str, device) -> dict:
     return {k: v.to(device) for k, v in convert.xfeat_state_dict(flat).items()}
 
 
+def save_params(path: str, model: XFeatNet) -> str:
+    """Write the model's weights as the .npz load_params reads (the flax
+    paths, HWIO kernels; ".npz" appended to a path without it, as np.savez
+    does). Returns the path written."""
+    if not path.endswith(".npz"):
+        path += ".npz"
+    if os.path.dirname(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, **convert.xfeat_flat_params(model.state_dict()))
+    return path
+
+
 def load_model(path: str, device) -> XFeatNet:
     """XFeatNet on `device` with the weights of `path`, for inference (eval
     mode, no gradients)."""

@@ -35,13 +35,15 @@ class Features(NamedTuple):
 
 
 def _blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
-    """Separable Gaussian, radius int(3 sigma): columns, then rows."""
+    """Separable Gaussian of (..., H, W) images, radius int(3 sigma): columns,
+    then rows."""
     k = SIFT.gauss_taps(sigma, max(int(3.0 * sigma), 1), img.device)
-    return SIFT.blur_axis(SIFT.blur_axis(img, k, 0), k, 1)
+    return SIFT.blur_axis(SIFT.blur_axis(img, k, -2), k, -1)
 
 
 def _harris(img: torch.Tensor, sigma_i: float = 2.0, k: float = 0.04) -> torch.Tensor:
-    dy, dx = torch.gradient(img)
+    """Harris response of (..., H, W) float32 images."""
+    dy, dx = torch.gradient(img, dim=(-2, -1))
     sxx = _blur(dx * dx, sigma_i)
     syy = _blur(dy * dy, sigma_i)
     sxy = _blur(dx * dy, sigma_i)

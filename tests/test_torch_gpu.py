@@ -27,7 +27,11 @@ calibrate_stereo (1e-8 relative); its LM makes no host sync. The streaming
 path: nvJPEG against PIL, the prefetch loader's side-stream batches against
 synchronous copies (no host sync in the consumer's loop), stream_reconstruct
 against the per-pair path, and the bench's config 1 step (one cost launch,
-equal to its CPU run).
+equal to its CPU run). XFeat training: two train_steps on the card against
+the CPU with the same draws (TF32 allowed by the caller), train() at a small
+size (no kernel launched, the weights saved and served), and the stereo
+pool's build (every dense and speckle kernel launched) followed by a stereo
+train_step (none launched).
 """
 
 import importlib.util
@@ -1178,3 +1182,103 @@ def test_config1_step_launches_cost_volume_once_and_equals_the_cpu(dev):
     assert grew == {"cost_volume": 1}
     disp_h, valid_h = B.sad_wta_step(l, r, 16)
     assert torch.equal(disp.cpu(), disp_h) and torch.equal(valid.cpu(), valid_h)
+
+
+def _v4_trainable(device):
+    from stereo_reconstruction_cv_tpu_torch.models import checkpoint as CKPT
+    from stereo_reconstruction_cv_tpu_torch.models import xfeat as XF
+
+    model = XF.XFeatNet().to(device)
+    model.load_state_dict(CKPT.load_params(CKPT.default_checkpoint(), device))
+    return model
+
+
+def _rendered_views(n, H, W, seed=0):
+    K = np.array([[115.0, 0, W / 2], [0, 115.0, H / 2], [0, 0, 1]])
+    return torch.from_numpy(np.stack([synth.render_pair(K, np.eye(3), (-0.14, 0, 0), H, W,
+                                                        seed=seed + s)[0].numpy()
+                                      for s in range(n)]).astype(np.float32))
+
+
+def test_train_step_on_the_card_equals_the_cpu(dev, tf32_default, monkeypatch):
+    """Two train_steps from the v4 weights with the same draws (made on the
+    CPU), with TF32 allowed in cuDNN and cuBLAS (train_step turns it off for
+    its losses and their backward): the losses to 1e-5 relative, each step's
+    gradients to 1e-4 of each tensor's largest entry and the parameters
+    after two by chip_smoke.py's move_error (tests/test_torch_xfeat_train.py's
+    tolerances against the JAX reference)."""
+    from stereo_reconstruction_cv_tpu_torch.models import xfeat as XF
+    from stereo_reconstruction_cv_tpu_torch.models import xfeat_train as XT
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    imgs = _rendered_views(4, 128, 128)
+    gen = torch.Generator().manual_seed(0)
+    draws = [XF.draw_warps(gen, 4) for _ in range(2)]
+    runs = {}
+    for device in ("cpu", dev):
+        model = _v4_trainable(device)
+        state = XF.create_train_state(model, XT.warmup_cosine(1e-3, 1, 10), max_norm=1.0)
+        losses, grads = [], []
+        for d in draws:
+            losses.append(float(XF.train_step(state, imgs.to(device),
+                                              XF.WarpDraws(*(t.to(device) for t in d)))))
+            grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
+        runs[str(device)] = (losses, grads, {n: p.detach().cpu() for n, p in model.named_parameters()})
+    (lh, gh, ph), (lc, gc, pc) = runs["cpu"], runs[str(dev)]
+    np.testing.assert_allclose(lc, lh, rtol=1e-5)
+    for c, h in zip(gc, gh):
+        for n in h:
+            assert float((c[n] - h[n]).abs().max() / h[n].abs().max()) <= 1e-4, n
+    smoke = _smoke()
+    move, share, move_all = smoke.move_error(pc, ph, gh, 1e-3)
+    assert move <= smoke.TRAIN_MOVE_TOL and share > 1 / 3 and move_all <= 2.0, (move, share, move_all)
+
+
+def test_train_runs_and_saves_on_the_card(dev, tmp_path):
+    from stereo_reconstruction_cv_tpu_torch.io.image import save_image
+    from stereo_reconstruction_cv_tpu_torch.models import checkpoint as CKPT
+    from stereo_reconstruction_cv_tpu_torch.models import xfeat_train as XT
+
+    for i, img in enumerate(_rendered_views(3, 120, 200)):
+        save_image(str(tmp_path / f"v{i}.jpg"), img.numpy().astype(np.uint8), quality=95)
+    counts = (CK.launches, SK.launches, LK.launches, SPK.launches, OC.launches)
+    before = [dict(c) for c in counts]
+    hist = XT.train([str(tmp_path)], steps=5, batch=4, crop=96, output=str(tmp_path / "w"),
+                    log_every=2, device="cuda")
+    assert [c == b for c, b in zip(counts, before)] == [True] * len(counts)
+    assert [h[0] for h in hist] == [0, 2, 4] and all(np.isfinite(v) for _, v in hist)
+    model = CKPT.load_model(str(tmp_path / "w.npz"), dev)
+    logits, desc, rel = model(_rendered_views(1, 64, 96).to(dev) / 255.0)
+    assert torch.isfinite(logits).all() and desc.shape == (1, 8, 12, 64)
+
+
+def test_stereo_pool_launches_the_dense_kernels_and_train_step_none(dev, tmp_path, monkeypatch):
+    from stereo_reconstruction_cv_tpu_torch.io.image import save_image
+    from stereo_reconstruction_cv_tpu_torch.models import xfeat as XF
+    from stereo_reconstruction_cv_tpu_torch.models import xfeat_train as XT
+
+    K = synth.K_4K * np.array([[0.1], [0.1], [1.0]])
+    monkeypatch.setattr(XT, "POOL_K", K)
+    pairs = []
+    for s in range(2):
+        left, right = synth.render_pair(K, synth.rotation_about((0.2, 1.0, 0.1), 2.0),
+                                        (-0.14, 0.004, -0.003), 216, 384, seed=s, device=dev)
+        folder = tmp_path / f"pair{s}"
+        folder.mkdir()
+        save_image(str(folder / "img1.jpg"), left.cpu().numpy(), quality=95)
+        save_image(str(folder / "img2.jpg"), right.cpu().numpy(), quality=95)
+        pairs.append(str(folder))
+    counts = (CK.launches, SK.launches, LK.launches, SPK.launches, OC.launches)
+    before = [dict(c) for c in counts]
+    pool = XT.build_stereo_pool(pairs, width=192, ndisp=16, cache_dir=str(tmp_path), device="cuda")
+    grew = {k for c, b in zip(counts, before) for k in c if c[k] != b[k]}
+    assert grew == {"cost_volume", "sgm_path_sweep", "sgm_sweep_wta", "lr_check",
+                    "speckle_labels", "speckle_keep"}, grew
+    assert all(t.device.type == "cuda" for t in pool) and pool[0].shape[0] == 2
+    before = [dict(c) for c in counts]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = XF.create_train_state(_v4_trainable(dev), 1e-4, max_norm=1.0)
+    loss = XF.train_step(state, XT._device_batch(pool[0], gen, 2, 64), XF.draw_warps(gen, 2),
+                         XT._stereo_batch(pool, gen, 2, 64))
+    assert np.isfinite(float(loss))
+    assert [dict(c) for c in counts] == before

@@ -226,8 +226,11 @@ def test_port_imports_no_jax():
         "import stereo_reconstruction_cv_tpu_torch.benchmarks, stereo_reconstruction_cv_tpu_torch.utils.synth\n"
         "import stereo_reconstruction_cv_tpu_torch.parallel.prefetch\n"
         "import stereo_reconstruction_cv_tpu_torch.parallel.streaming\n"
+        "import stereo_reconstruction_cv_tpu_torch.models.xfeat_train\n"
+        "import stereo_reconstruction_cv_tpu_torch.tools.xfeat_warpcheck\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'stereo_reconstruction_cv_tpu' not in sys.modules\n"
+        "assert not {'flax', 'optax'} & set(sys.modules)\n"
         "assert 'PIL' not in sys.modules\n"
         "print('ok')\n"
     )
@@ -285,14 +288,14 @@ def _imports(path: pathlib.Path):
 
 
 def test_port_and_chip_smoke_import_nothing_of_jax_or_the_reference():
-    """Nor does the package import chip_smoke.py, whose scenes it keeps in
-    utils/synth.py."""
+    """Nor flax or optax; nor does the package import chip_smoke.py, whose
+    scenes it keeps in utils/synth.py."""
     package = sorted((ROOT / "stereo_reconstruction_cv_tpu_torch").rglob("*.py"))
     files = package + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
            for f in files for line, mod in _imports(f)
-           if mod.split(".")[0] in ("jax", "jaxlib", "stereo_reconstruction_cv_tpu")
+           if mod.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "stereo_reconstruction_cv_tpu")
            or mod.startswith(".") or (f in package and mod.split(".")[0] == "chip_smoke")]
     assert not bad, bad
 
