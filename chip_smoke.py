@@ -114,7 +114,24 @@ Phases:
                loaded by load_model and served by geometry --learned
                --model on phase 7's pair, and the warp-check true rate
                (tools/xfeat_warpcheck.py) of v4 and of the result
-Each main path of phases 4, 4b, 5, 7, 8, 9, 10 and 11 (config 2 with device,
+  12. mesh     multi-device and frame modes (mesh_phase), on meshes of
+               distinct cards where torch sees more than one, else of
+               cuda:0 repeated: (a) the carried sgm_path_sweep against its
+               plain version on a 180-row shard of config 2's volume, every
+               direction with dy != 0, zero and random carries, EQUAL;
+               (b) sharded_sgbm_disparity(exact=True) on config 2's pair
+               (8 paths, LR, device speckle) on 1x2, 1x4 and 2x2 meshes and
+               on phase 5's 4K x 256 5-path pair on 1x4, EQUAL to
+               sgbm_disparity, each timed beside it; (c) halo mode on 1x4:
+               both-valid within 1 px >= 0.995, the valid IoU, time;
+               (d) sharded_speckle_filter EQUAL to speckle_filter on
+               speckled 720p maps at max_size 100 and 200; (e)
+               stream_reconstruct(mesh=) on three 4K JPEG pairs, its clouds
+               bit-equal to the mesh-less stream's; (f) sgbm_disparity_tiled
+               (tile_rows 512) on phase 5's pair against the whole frame:
+               agreement, peak memory, time; (g) sgbm_disparity_fast there:
+               the share within 1 and 2 px, time
+Each main path of phases 4, 4b, 5, 7, 8, 9, 10, 11 and 12 (config 2 with device,
 host and no speckle, the 720p CLI chain, the two tools, the 4K pair -> PLY,
 config 3's chain, the raw pair's dense chain, config 4's step, learned
 geometry, the calibration and config 3's chain at the anchor and the
@@ -157,6 +174,11 @@ KERNELS = {
                     "stereo_reconstruction_cv_tpu/ops/pallas/cost_pallas.py:222"),
     "sgm_path_sweep": ("stereo_reconstruction_cv_tpu_torch/csrc/sgm.cu",
                        "stereo_reconstruction_cv_tpu/ops/pallas/sgm_pallas.py:563, :263, :671, :617"),
+    # The same kernel's carry-in/out instance, which continues a row shard
+    # (the reference carries its XLA scan: parallel/sgm_sharded.py:420).
+    "sgm_path_sweep_carry": ("stereo_reconstruction_cv_tpu_torch/csrc/sgm.cu",
+                             "stereo_reconstruction_cv_tpu/ops/pallas/sgm_pallas.py:563, :263 "
+                             "(carried: stereo_reconstruction_cv_tpu/parallel/sgm_sharded.py:420)"),
     "sgm_sweep_wta": ("stereo_reconstruction_cv_tpu_torch/csrc/sgm.cu",
                       "stereo_reconstruction_cv_tpu/ops/pallas/sgm_pallas.py:505"),
     "sgm_sweep_sum": ("stereo_reconstruction_cv_tpu_torch/csrc/sgm.cu",
@@ -194,6 +216,7 @@ OPS_PER = {
     # neighbours, + P1, min), + C, the carry's min and renormalisation, the
     # u16 accumulate
     "sgm_path_sweep": 8,
+    "sgm_path_sweep_carry": 8,
     # per cell: the DP step (7), S = nd*C + volumes + delta (3), the packed
     # key (multiply, add, min) and the uniqueness test (multiply, compare,
     # or)
@@ -1165,6 +1188,219 @@ def train_phase(torch, dev, host, main_path, dense, speckle, pair4k):
                 + " ".join(f"{r:.4f} (n={n})" for r, n in rates))
             if not all(n > 0 for _, n in rates):
                 raise AssertionError(f"(c) {name}: warp check found no match {rates}")
+
+
+MESH_SHAPES = ((1, 2), (1, 4), (2, 2))  # phase 12 (b): config 2 in exact mode
+HALO_AGREE = 0.995  # phase 12 (c): both-valid share within 1 px of single-device
+
+
+def mesh_phase(torch, dev, main_path, dense, results, note, frame):
+    """Phase 12: the multi-device and frame modes (module docstring, (a)-(g)).
+    `frame` holds phase 5's rectified 4K pair (rl, rr). Raises
+    AssertionError on a failed check."""
+    from stereo_reconstruction_cv_tpu_torch.io.image import save_image
+    from stereo_reconstruction_cv_tpu_torch.ops import disparity as DP
+    from stereo_reconstruction_cv_tpu_torch.ops.cuda import cost as CK
+    from stereo_reconstruction_cv_tpu_torch.ops.cuda import sgm as SK
+    from stereo_reconstruction_cv_tpu_torch.ops.cuda import speckle as SPK
+    from stereo_reconstruction_cv_tpu_torch.parallel import mesh as M
+    from stereo_reconstruction_cv_tpu_torch.parallel import sgm_sharded as SS
+    from stereo_reconstruction_cv_tpu_torch.parallel.streaming import stream_reconstruct
+    from stereo_reconstruction_cv_tpu_torch.tools.probe_sweep import textured_pair
+    from stereo_reconstruction_cv_tpu_torch.utils.synth import (BASELINE_M, K_4K, SEED,
+                                                              rectified_rig, render_pair)
+    from stereo_reconstruction_cv_tpu_torch.utils.timing import cuda_ms, graph_ms
+
+    if "rl" not in frame:
+        raise AssertionError("phase 5 left no 4K pair")
+    n_cards = torch.cuda.device_count()
+    cards = [torch.device("cuda", i) for i in range(n_cards)]
+
+    def make(nd, ns):
+        return M.make_mesh(nd, ns, devices=[cards[i % n_cards] for i in range(nd * ns)])
+
+    log(f"[mesh] {n_cards} CUDA device(s) seen; meshes of "
+        + ("distinct cards (repeated past the count)" if n_cards > 1 else "cuda:0 repeated"))
+
+    def sync():
+        for c in cards:
+            torch.cuda.synchronize(c)
+
+    def median_s(fn, reps=5):
+        fn()
+        walls = []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            walls.append(time.perf_counter() - t0)
+        return statistics.median(walls)
+
+    def agreement(d, v, d1, v1):
+        """(both-valid share within 1 px, within 2 px, valid IoU)."""
+        both = v & v1
+        diff = (d - d1).abs()[both]
+        n = max(int(both.sum().item()), 1)
+        iou = int(both.sum().item()) / max(int((v | v1).sum().item()), 1)
+        return (int((diff <= 1).sum().item()) / n, int((diff <= 2).sum().item()) / n, iou)
+
+    p1, p2 = DP.SGBMConfig().p1, DP.SGBMConfig().p2
+    cfg2 = DP.SGBMConfig(num_disparities=128, num_directions=8)
+    rng = np.random.default_rng(SEED + 12)
+    H, W, D = 720, 1280, 128
+    left, right = textured_pair(rng, H, W, 30)
+    l2, r2 = torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev)
+
+    # (a) The carried sweep on one 180-row shard of config 2's volume.
+    C = CK.cost_volume(*DP.cost_planes(l2, r2, cfg2.pre_filter_cap), D, 0, cfg2.block_size)
+    h, Wc = H // 4, C.shape[1]
+    block = C[h:2 * h]
+    for dx, dy in [d for d in SK.DIRS_8 if d[1] != 0]:
+        for kind in ("zero", "random"):
+            cin = (torch.zeros((Wc, D), dtype=torch.int32, device=dev) if kind == "zero" else
+                   torch.from_numpy(rng.integers(0, 9000, (Wc, D)).astype(np.int32)).to(dev))
+            acc = torch.zeros_like(block)
+            cout = torch.empty((Wc, D), dtype=torch.int32, device=dev)
+            SK.path_sweep_cuda(block, acc, dx, dy, p1, p2, False, cin, cout)
+            delta, lam = SK.path_delta_carry_plain(block, dx, dy, p1, p2, cin)
+            note("sgm_path_sweep_carry", max(max_err(torch, acc, delta, fa=SK.u16),
+                                             max_err(torch, cout, lam)))
+    cin = torch.from_numpy(rng.integers(0, 9000, (Wc, D)).astype(np.int32)).to(dev)
+    acc, cout = torch.zeros_like(block), torch.empty((Wc, D), dtype=torch.int32, device=dev)
+    t_c = graph_ms(lambda: SK.path_sweep_cuda(block, acc, 1, 1, p1, p2, True, cin, cout), 10)
+    t_n = graph_ms(lambda: SK.path_sweep_cuda(block, acc, 1, 1, p1, p2, True), 10)
+    t_p = cuda_ms(lambda: SK.path_delta_carry_plain(block, 1, 1, p1, p2, cin), 3)
+    # An accumulating launch reads C and the volume and writes the volume
+    # (6 B/cell), and reads and writes a (W, D) int32 carry.
+    b_c = bound(6 * block.numel() + 2 * 4 * Wc * D, OPS_PER["sgm_path_sweep_carry"] * block.numel())
+    results["sgm_path_sweep_carry"].update(ms=t_c, plain_ms=t_p, **b_c)
+    log(f"[mesh] (a) carried sgm_path_sweep {tuple(block.shape)}: equal to its plain version for "
+        f"6 directions x (zero, random) carries; (1, 1) accumulating: carried {t_c:.4f} ms, "
+        f"the same launch without a carry {t_n:.4f} ms, plain {t_p:.3f} ms; bound "
+        f"{b_c['bound_ms']:.4f} ms ({b_c['bound_by']}), share {b_c['bound_ms'] / t_c:.3f}")
+    del C, block, acc
+
+    # (b) Exact mode against single-device, config 2 and 4K x 256.
+    carried = dense + ("sgm_path_sweep_carry", "speckle_labels")
+    d1, v1 = DP.sgbm_disparity(l2, r2, cfg2)
+    t1 = median_s(lambda: DP.sgbm_disparity(l2, r2, cfg2))
+    log(f"[mesh] (b) config 2 single-device sgbm_disparity: {t1:.5f} s/pair (median of 5)")
+    for nd, ns in MESH_SHAPES:
+        mesh = make(nd, ns)
+        L, R = torch.stack([l2] * nd), torch.stack([r2] * nd)
+        with main_path(f"exact {nd}x{ns} config 2", carried):
+            d, v = (M.gather(x, dev) for x in SS.sharded_sgbm_disparity(mesh, L, R, cfg2, exact=True))
+        if not all(torch.equal(d[k], d1) and torch.equal(v[k], v1) for k in range(nd)):
+            raise AssertionError(f"exact mode {nd}x{ns}: maps differ from sgbm_disparity")
+        t = median_s(lambda: SS.sharded_sgbm_disparity(mesh, L, R, cfg2, exact=True))
+        log(f"[mesh] (b) exact {nd}x{ns} on {[str(x) for row in mesh.devices for x in row]}: "
+            f"equal to single-device; {t:.5f} s a call of {nd} pair(s), {t / nd:.5f} s/pair "
+            f"({t / nd / t1:.2f}x single-device)")
+    cfg3 = DP.SGBMConfig(num_disparities=256, num_directions=5)
+    rl, rr = frame["rl"], frame["rr"]
+    d4, v4 = DP.sgbm_disparity(rl, rr, cfg3)
+    t4 = median_s(lambda: DP.sgbm_disparity(rl, rr, cfg3), 3)
+    mesh = make(1, 4)
+    with main_path("exact 1x4 4K x256 5-dir", carried):
+        d, v = (M.gather(x, dev) for x in SS.sharded_sgbm_disparity(mesh, rl[None], rr[None], cfg3,
+                                                                    exact=True))
+    if not (torch.equal(d[0], d4) and torch.equal(v[0], v4)):
+        raise AssertionError("exact mode 1x4 at 4K x 256: maps differ from sgbm_disparity")
+    t = median_s(lambda: SS.sharded_sgbm_disparity(mesh, rl[None], rr[None], cfg3, exact=True), 3)
+    log(f"[mesh] (b) exact 1x4 4K x256 5-dir: equal to single-device; {t:.5f} s/pair, "
+        f"single-device {t4:.5f} s/pair ({t / t4:.2f}x)")
+
+    # (c) Halo mode on 1x4 against single-device, config 2.
+    with main_path("halo 1x4 config 2", dense + ("speckle_labels",), ("sgm_path_sweep_carry",)):
+        d, v = (M.gather(x, dev)[0] for x in SS.sharded_sgbm_disparity(mesh, l2[None], r2[None], cfg2))
+    a1, a2, iou = agreement(d, v, d1, v1)
+    t = median_s(lambda: SS.sharded_sgbm_disparity(mesh, l2[None], r2[None], cfg2))
+    log(f"[mesh] (c) halo 1x4 (halo 32) config 2: both-valid within 1 px {a1:.5f}, 2 px {a2:.5f}, "
+        f"valid IoU {iou:.5f}; {t:.5f} s/pair ({t / t1:.2f}x single-device)")
+    if a1 < HALO_AGREE:
+        raise AssertionError(f"halo mode agreement {a1} < {HALO_AGREE}")
+
+    # (d) The sharded speckle filter against single-device on speckled maps.
+    maps = [speckled_map(rng, H, W), speckled_map(rng, H, W, p_invalid=0.25, block=4)]
+    disp = torch.from_numpy(np.stack([m[0] for m in maps])).to(dev)
+    valid = torch.from_numpy(np.stack([m[1] for m in maps])).to(dev)
+    mesh22 = make(2, 2)
+    for T in (100, 200):
+        keep = M.gather(SS.sharded_speckle_filter(mesh22, disp, valid, T, SPECKLE_DIFF), dev)
+        for k in range(2):
+            want = SPK.speckle_filter(disp[k], valid[k], T, SPECKLE_DIFF)
+            if not torch.equal(keep[k], want):
+                raise AssertionError(f"sharded speckle, map {k}, max_size {T}: differs")
+    t_s = median_s(lambda: SS.sharded_speckle_filter(mesh22, disp, valid, 200, SPECKLE_DIFF))
+    t_1 = median_s(lambda: [SPK.speckle_filter(disp[k], valid[k], 200, SPECKLE_DIFF) for k in range(2)])
+    log(f"[mesh] (d) sharded_speckle_filter 2x2 on two 720p speckled maps: equal to speckle_filter "
+        f"at max_size 100 and 200; {t_s:.5f} s, single-device {t_1:.5f} s (both maps)")
+
+    # (e) stream_reconstruct over a data mesh against the mesh-less stream.
+    H4, W4 = rl.shape
+    cfg5 = DP.SGBMConfig(num_disparities=128, num_directions=8, speckle_window_size=0)
+    Kt, res = rectified_rig((W4, H4))
+    T3 = np.array([-BASELINE_M, 0.0, 0.0])
+    with tempfile.TemporaryDirectory() as td:
+        pairs = []
+        for k in range(STREAM_PAIRS):
+            row = tuple(os.path.join(td, f"pair{k}_{side}.jpg") for side in "lr")
+            for img, path in zip(render_pair(K_4K, np.eye(3), T3, H4, W4, seed=SEED + k, device=dev),
+                                 row):
+                save_image(path, img.cpu().numpy(), quality=90)
+            pairs.append(row)
+        plain = stream_reconstruct(pairs, res.Q.numpy(), cfg5, os.path.join(td, "plain"),
+                                   batch_size=STREAM_PAIRS, decoder="nvjpeg")
+        smesh = make(STREAM_PAIRS, 1)
+        with main_path(f"stream_reconstruct mesh {STREAM_PAIRS}x1", dense):
+            sync()
+            t0 = time.perf_counter()
+            meshed = stream_reconstruct(pairs, res.Q.numpy(), cfg5, os.path.join(td, "mesh"),
+                                        batch_size=STREAM_PAIRS, decoder="nvjpeg", mesh=smesh)
+            wall = time.perf_counter() - t0
+        n_pts = 0
+        for a, b in zip(plain, meshed):
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                ba, bb = fa.read(), fb.read()
+            if ba != bb:
+                raise AssertionError(f"{os.path.basename(b)}: the mesh's cloud differs")
+            n_pts += check_ply(b)
+    log(f"[mesh] (e) stream_reconstruct on a {STREAM_PAIRS}x1 mesh, {STREAM_PAIRS} 4K JPEG pairs "
+        f"(nvjpeg): {len(meshed)} clouds bit-equal to the mesh-less stream's, {n_pts} points, "
+        f"{wall:.3f} s")
+
+    # (f) Row tiling against the whole frame, 4K x 256, 5 paths.
+    def peak_of(fn):
+        sync()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = fn()
+        sync()
+        return out, (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+
+    (d4, v4), g_whole = peak_of(lambda: DP.sgbm_disparity(rl, rr, cfg3))
+    with main_path("tiled 4K x256 5-dir", dense + ("speckle_labels", "speckle_keep")):
+        (dt, vt), g_tiled = peak_of(lambda: DP.sgbm_disparity_tiled(rl, rr, cfg3, tile_rows=512))
+    a1, a2, iou = agreement(dt, vt, d4, v4)
+    t = median_s(lambda: DP.sgbm_disparity_tiled(rl, rr, cfg3, tile_rows=512), 3)
+    log(f"[mesh] (f) sgbm_disparity_tiled 4K x256 5-dir, tile_rows 512, halo 32: both-valid within "
+        f"1 px {a1:.5f}, valid IoU {iou:.5f}; peak {g_tiled:.3f} GiB (whole frame {g_whole:.3f}); "
+        f"{t:.5f} s/pair (whole {t4:.5f})")
+    if a1 < HALO_AGREE:
+        raise AssertionError(f"tiled agreement {a1} < {HALO_AGREE}")
+
+    # (g) The coarse-to-fine fast path against full SGBM.
+    with main_path("fast 4K x256 5-dir", dense + ("speckle_labels", "speckle_keep")):
+        df, vf = DP.sgbm_disparity_fast(rl, rr, cfg3)
+    a1, a2, iou = agreement(df, vf, d4, v4)
+    t = median_s(lambda: DP.sgbm_disparity_fast(rl, rr, cfg3), 3)
+    log(f"[mesh] (g) sgbm_disparity_fast 4K x256 5-dir: both-valid within 1 px {a1:.5f}, 2 px "
+        f"{a2:.5f}, valid IoU {iou:.5f}, valid share {vf.float().mean().item():.4f}; "
+        f"{t:.5f} s/pair (full {t4:.5f})")
+    if not (bool(torch.isfinite(df).all()) and bool(vf.any())):
+        raise AssertionError("fast mode: non-finite disparities or nothing valid")
 
 
 def main() -> int:
@@ -2157,6 +2393,11 @@ def main() -> int:
         if "pair" not in raw4k:
             raise AssertionError("phase 7 left no raw 4K pair")
         train_phase(torch, dev, torch.device("cpu"), main_path, dense, speckle, raw4k["pair"])
+
+    # ------------------------------------------------------------- 12. mesh
+    @phase("12 mesh")
+    def _():
+        mesh_phase(torch, dev, main_path, dense, results, note, frame)
 
     if failures:
         log(f"FAILED phases: {failures}")

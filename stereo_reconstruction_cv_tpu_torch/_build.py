@@ -187,7 +187,7 @@ def nvjpeg_library() -> ctypes.CDLL:
 def _declare_kernels(lib: ctypes.CDLL) -> None:
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.srcv_cost_volume.argtypes = [P] * 5 + [I] * 9 + [P]
-    lib.srcv_sgm_path_sweep.argtypes = [P, P] + [I] * 9 + [P]
+    lib.srcv_sgm_path_sweep.argtypes = [P] * 4 + [I] * 9 + [P]
     lib.srcv_sgm_sweep_wta.argtypes = [P] * 7 + [I] * 12 + [P]
     lib.srcv_sgm_sweep_sum.argtypes = [P] * 4 + [I] * 10 + [P]
     lib.srcv_lr_check.argtypes = [P] * 4 + [I] * 7 + [P]

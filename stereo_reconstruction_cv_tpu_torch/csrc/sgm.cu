@@ -229,9 +229,17 @@ constexpr int SWEEP_WARPS = 2;  // paths (warps) per block of both sweep kernels
 template <int K>
 constexpr int RING_STEPS = K <= 2 ? 16 : (K <= 8 ? 8 : 4);
 
-template <int K, bool VEC>
+// CARRY: the block of rows continues a taller frame along dy != 0. A path
+// that starts on the block's first row (in path order) takes its carry from
+// carry_in, the (W, D) int32 L or lam of the row before the block, at the
+// predecessor's column x - dx (zero where that leaves [0, W), as at a true
+// path start), normalised to min 0; a path that ends on the block's last row
+// writes its lam to carry_out at its own column. Either pointer may be null.
+// Without CARRY the instance is the plain sweep.
+template <int K, bool VEC, bool CARRY>
 __global__ void __launch_bounds__(32 * SWEEP_WARPS)
 path_sweep_kernel(const int16_t* __restrict__ C, uint16_t* __restrict__ acc,
+                  const int32_t* __restrict__ carry_in, int32_t* __restrict__ carry_out,
                   int H, int W, int D, int dx, int dy, int P1, int P2,
                   int accumulate) {
   constexpr int P = RING_STEPS<K>;
@@ -262,6 +270,23 @@ path_sweep_kernel(const int16_t* __restrict__ C, uint16_t* __restrict__ acc,
   int lam[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) lam[k] = lane * K + k < D ? 0 : BIG;
+  if constexpr (CARRY) {
+    // y, x and the branch are the same for the whole warp (one path).
+    const int xp = x - dx;
+    if (carry_in && dy != 0 && y == (dy > 0 ? 0 : H - 1) && xp >= 0 && xp < W) {
+      const int32_t* cin = carry_in + (size_t)xp * D + (size_t)lane * K;
+      int v[K];
+      int m = INT_MAX;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        v[k] = lane * K + k < D ? cin[k] : INT_MAX;
+        m = min(m, v[k]);
+      }
+      m = __reduce_min_sync(FULL, m);
+#pragma unroll
+      for (int k = 0; k < K; ++k) lam[k] = lane * K + k < D ? v[k] - m : BIG;
+    }
+  }
 
   for (int s0 = 0; s0 < n; s0 += P) {
 #pragma unroll
@@ -286,6 +311,16 @@ path_sweep_kernel(const int16_t* __restrict__ C, uint16_t* __restrict__ acc,
           load_row<K, VEC>(cp + (s + P) * step, valid, cr[j]);
           if (accumulate) load_row<K, VEC>(ap + (s + P) * step, valid, ar[j]);
         }
+      }
+    }
+  }
+  if constexpr (CARRY) {
+    const int ye = y + (n - 1) * dy;
+    if (carry_out && active && ye == (dy > 0 ? H - 1 : 0)) {
+      int32_t* cout = carry_out + (size_t)(x + (n - 1) * dx) * D + (size_t)lane * K;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (lane * K + k < D) cout[k] = lam[k];
       }
     }
   }
@@ -639,21 +674,34 @@ int lanes_k(int D) {
   return k;
 }
 
-template <int K>
-int launch_sweep(const void* C, void* acc, int H, int W, int D, int dx, int dy,
-                 int P1, int P2, int accumulate, int vec, cudaStream_t stream) {
+template <int K, bool VEC, bool CARRY>
+void launch_sweep_instance(const void* C, void* acc, const void* cin, void* cout, int H,
+                           int W, int D, int dx, int dy, int P1, int P2, int accumulate,
+                           cudaStream_t stream) {
   const int blocks = (num_paths(dx, dy, H, W) + SWEEP_WARPS - 1) / SWEEP_WARPS;
+  path_sweep_kernel<K, VEC, CARRY><<<blocks, 32 * SWEEP_WARPS, 0, stream>>>(
+      (const int16_t*)C, (uint16_t*)acc, (const int32_t*)cin, (int32_t*)cout, H, W, D, dx,
+      dy, P1, P2, accumulate);
+}
+
+template <int K>
+int launch_sweep(const void* C, void* acc, const void* cin, void* cout, int H, int W, int D,
+                 int dx, int dy, int P1, int P2, int accumulate, int vec,
+                 cudaStream_t stream) {
   const unsigned align = K >= 8 ? 16u : 2u * K;
   if (vec && (D % K != 0 || ((uintptr_t)C | (uintptr_t)acc) % align != 0)) {
     return (int)cudaErrorInvalidValue;  // the caller asked for a layout it lacks
   }
+  if ((cin || cout) && dy == 0) return (int)cudaErrorInvalidValue;  // rows are whole
+#define SRCV_SWEEP_INSTANCE(VV, CC) \
+  launch_sweep_instance<K, VV, CC>(C, acc, cin, cout, H, W, D, dx, dy, P1, P2, accumulate, stream)
+  const bool carry = cin || cout;
   if (vec) {
-    path_sweep_kernel<K, true><<<blocks, 32 * SWEEP_WARPS, 0, stream>>>(
-        (const int16_t*)C, (uint16_t*)acc, H, W, D, dx, dy, P1, P2, accumulate);
+    if (carry) SRCV_SWEEP_INSTANCE(true, true); else SRCV_SWEEP_INSTANCE(true, false);
   } else {
-    path_sweep_kernel<K, false><<<blocks, 32 * SWEEP_WARPS, 0, stream>>>(
-        (const int16_t*)C, (uint16_t*)acc, H, W, D, dx, dy, P1, P2, accumulate);
+    if (carry) SRCV_SWEEP_INSTANCE(false, true); else SRCV_SWEEP_INSTANCE(false, false);
   }
+#undef SRCV_SWEEP_INSTANCE
   return (int)cudaGetLastError();
 }
 
@@ -738,12 +786,15 @@ extern "C" {
 // onto (accumulate = 1). D <= 512. vec = 1: one access of 2K bytes per lane,
 // which needs D % K == 0 and both pointers aligned to min(2K, 16) bytes
 // (ops/cuda/sgm.py:sweep_vector_path); vec = 0: K scalar accesses.
-int srcv_sgm_path_sweep(const void* C, void* acc, int H, int W, int D, int dx,
-                        int dy, int P1, int P2, int accumulate, int vec,
-                        void* stream) {
+// carry_in, carry_out: (W, D) int32 rows before and after the block (dy != 0
+// only; path_sweep_kernel), or null.
+int srcv_sgm_path_sweep(const void* C, void* acc, const void* carry_in, void* carry_out,
+                        int H, int W, int D, int dx, int dy, int P1, int P2,
+                        int accumulate, int vec, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-#define SRCV_SWEEP(KK) \
-  return launch_sweep<KK>(C, acc, H, W, D, dx, dy, P1, P2, accumulate, vec, s)
+#define SRCV_SWEEP(KK)                                                                  \
+  return launch_sweep<KK>(C, acc, carry_in, carry_out, H, W, D, dx, dy, P1, P2, accumulate, \
+                          vec, s)
   switch (lanes_k(D)) {
     case 1: SRCV_SWEEP(1);
     case 2: SRCV_SWEEP(2);

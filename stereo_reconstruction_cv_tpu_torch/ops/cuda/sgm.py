@@ -7,7 +7,10 @@ replace the TPU kernels of ``ops/pallas/sgm_pallas.py``:
 
 - ``sgm_path_sweep`` (``_sweep_vertical``, ``_sweep_vertical_tiled``,
   ``_sweep_hT``, ``_sweep_horizontal``): one path direction, writing or
-  adding its (L - C) deltas onto a u16 volume;
+  adding its (L - C) deltas onto a u16 volume; with a carry in and out
+  (``sgm_path_sweep_carry``, the XLA scan ``parallel/sgm_sharded.py:
+  _scan_rows_carry``) a block of rows continues a taller frame, as the
+  exact row-sharded SGBM hands each shard's last row on to the next;
 - ``sgm_sweep_wta`` (``_sweep_hT_wta``): the last direction, FUSED_DIR, with
   WTA fused, so the aggregated volume S never reaches device memory;
 - ``sgm_sweep_sum`` (the S assembly of ``sgm_aggregate_pallas``): the last
@@ -53,8 +56,8 @@ FUSED_DIR = (0, 1)
 _BIG = 1 << 29
 
 # Kernel launches by this module's wrappers (read and reset by chip_smoke.py).
-launches = {"sgm_path_sweep": 0, "sgm_sweep_wta": 0, "sgm_sweep_sum": 0, "wta_volume": 0,
-            "wta_packed": 0}
+launches = {"sgm_path_sweep": 0, "sgm_path_sweep_carry": 0, "sgm_sweep_wta": 0,
+            "sgm_sweep_sum": 0, "wta_volume": 0, "wta_packed": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -91,13 +94,24 @@ def _scan_dir(C: torch.Tensor, dx: int, dy: int, p1: int, p2: int) -> torch.Tens
             prev = _sgm_step(prev, vol[:, x], p1, p2)
             out[:, x] = prev
         return out if dx > 0 else out.flip(1)
+    return scan_rows_carry(C, dx, dy, p1, p2)[0]
+
+
+def scan_rows_carry(C: torch.Tensor, dx: int, dy: int, p1: int, p2: int,
+                    carry: torch.Tensor | None = None):
+    """One direction with dy != 0 over a block of rows that continues a
+    taller frame (``parallel/sgm_sharded.py:_scan_rows_carry``): carry (W, D)
+    is L of the row before the block's first row in path order (None: a
+    true image edge, where the zero carry makes L = C). The diagonal's
+    column shift applies to the carry as between any two rows. C (h, W, D)
+    int32 -> (L volume, L of the block's last row in path order)."""
     vol = C if dy > 0 else C.flip(0)
     out = torch.empty_like(vol)
-    prev = torch.zeros_like(vol[0])
+    prev = torch.zeros_like(vol[0]) if carry is None else carry.to(vol.dtype)
     for y in range(vol.shape[0]):
         prev = _sgm_step(_shift_cols(prev, dx) if dx else prev, vol[y], p1, p2)
         out[y] = prev
-    return out if dy > 0 else out.flip(0)
+    return (out if dy > 0 else out.flip(0)), prev
 
 
 def sgm_aggregate_plain(C: torch.Tensor, p1: int, p2: int,
@@ -114,6 +128,17 @@ def path_delta_plain(C: torch.Tensor, dx: int, dy: int, p1: int, p2: int) -> tor
     """One direction's (L - C), int32: what sgm_path_sweep adds to its volume."""
     C = C.to(torch.int32)
     return _scan_dir(C, dx, dy, p1, p2) - C
+
+
+def path_delta_carry_plain(C: torch.Tensor, dx: int, dy: int, p1: int, p2: int,
+                           carry: torch.Tensor | None = None):
+    """What sgm_path_sweep computes with a carry: (the direction's (L - C)
+    int32, lam = L - min_d L of the block's last row in path order). The
+    deltas do not depend on a constant added to the carry, so L and lam
+    carries give the same."""
+    C = C.to(torch.int32)
+    L, last = scan_rows_carry(C, dx, dy, p1, p2, carry)
+    return L - C, last - last.amin(-1, keepdim=True)
 
 
 def wta_maps(S: torch.Tensor, min_disp: int, uniqueness_ratio: int):
@@ -242,22 +267,64 @@ def sweep_vector_path(num_disp: int, *ptrs: int) -> bool:
     return num_disp % k == 0 and all(p % align == 0 for p in ptrs)
 
 
+def _check_carries(C: torch.Tensor, dy: int, *carries) -> None:
+    if dy == 0:
+        raise ValueError("a carry continues rows: horizontal directions (dy = 0) take none")
+    H, W, D = C.shape
+    for c in carries:
+        if c is not None and (c.shape != (W, D) or c.dtype != torch.int32
+                              or c.device != C.device or not c.is_contiguous()):
+            raise ValueError(f"carries must be contiguous ({W}, {D}) int32 tensors on {C.device}")
+
+
 def path_sweep_cuda(C: torch.Tensor, acc: torch.Tensor, dx: int, dy: int,
-                    p1: int, p2: int, accumulate: bool) -> None:
-    """Kernel: one direction's deltas written (or added) onto acc in place."""
+                    p1: int, p2: int, accumulate: bool,
+                    carry_in: torch.Tensor | None = None,
+                    carry_out: torch.Tensor | None = None) -> None:
+    """Kernel: one direction's deltas written (or added) onto acc in place.
+    With a carry (dy != 0; csrc/sgm.cu path_sweep_kernel's CARRY instance)
+    the rows continue a taller frame: carry_in (W, D) int32 is L (or lam) of
+    the row before the first, carry_out receives lam of the last row, both
+    in path order; it counts as sgm_path_sweep_carry."""
     _require_cuda_cost(C)
     if acc.shape != C.shape or acc.dtype != torch.int16 or not acc.is_contiguous():
         raise ValueError("acc must be a contiguous int16 tensor of C's shape")
+    carried = carry_in is not None or carry_out is not None
+    if carried:
+        _check_carries(C, dy, carry_in, carry_out)
     H, W, D = C.shape
     vec = sweep_vector_path(D, C.data_ptr(), acc.data_ptr())
     lib = _build.kernels_library()
     with torch.cuda.device(C.device):
         err = lib.srcv_sgm_path_sweep(
-            C.data_ptr(), acc.data_ptr(), H, W, D, dx, dy, p1, p2, int(accumulate),
-            int(vec), torch.cuda.current_stream().cuda_stream,
+            C.data_ptr(), acc.data_ptr(), None if carry_in is None else carry_in.data_ptr(),
+            None if carry_out is None else carry_out.data_ptr(), H, W, D, dx, dy, p1, p2,
+            int(accumulate), int(vec), torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(lib, err, "sgm_path_sweep")
-    _build.count(launches, "sgm_path_sweep")
+    name = "sgm_path_sweep_carry" if carried else "sgm_path_sweep"
+    _build.check(lib, err, name)
+    _build.count(launches, name)
+
+
+def path_sweep(C: torch.Tensor, acc: torch.Tensor, dx: int, dy: int, p1: int, p2: int,
+               accumulate: bool, carry_in: torch.Tensor | None = None,
+               carry_out: torch.Tensor | None = None) -> None:
+    """path_sweep_cuda on a CUDA tensor, its plain version on the CPU: acc
+    (u16 bits in int16) gets the direction's deltas written or added (mod
+    2^16), carry_out the last row's lam."""
+    if C.device.type != "cpu":
+        path_sweep_cuda(C, acc, dx, dy, p1, p2, accumulate, carry_in, carry_out)
+        return
+    if carry_in is not None or carry_out is not None:
+        _check_carries(C, dy, carry_in, carry_out)
+        delta, lam = path_delta_carry_plain(C, dx, dy, p1, p2, carry_in)
+        if carry_out is not None:
+            carry_out.copy_(lam)
+    else:
+        delta = path_delta_plain(C, dx, dy, p1, p2)
+    if accumulate:
+        delta = delta + u16(acc)
+    acc.copy_((delta & 0xFFFF).to(torch.int16))
 
 
 def _sweep_group(C: torch.Tensor, acc: torch.Tensor, group, p1: int, p2: int) -> None:
@@ -402,6 +469,16 @@ def sweep_wta_cuda(C: torch.Tensor, vols: Sequence[torch.Tensor],
     _build.check(lib, err, "sgm_sweep_wta")
     _build.count(launches, "sgm_sweep_wta")
     return disp, valid, best, minS
+
+
+def sweep_wta(C: torch.Tensor, vols: Sequence[torch.Tensor], nd: int, p1: int, p2: int,
+              uniqueness_ratio: int, min_disp: int, direction: Tuple[int, int] = FUSED_DIR):
+    """sweep_wta_cuda on a CUDA tensor, sweep_wta_plain over the u16
+    volumes' sum on the CPU -> (disp, valid, best, minS)."""
+    if C.device.type != "cpu":
+        return sweep_wta_cuda(C, vols, nd, p1, p2, uniqueness_ratio, min_disp, direction)
+    partial = sum(u16(v) for v in vols)
+    return sweep_wta_plain(C, partial, nd, p1, p2, uniqueness_ratio, min_disp, direction)
 
 
 def sgm_wta(C: torch.Tensor, p1: int, p2: int, num_directions: int = 8,

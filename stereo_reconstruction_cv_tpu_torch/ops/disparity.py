@@ -13,6 +13,10 @@ parity, the reference's exact parameter set in the port's own
                                                         speckle_keep)
   speckle filter, "exact"             -> host union-find (native.py)
 
+beside the whole-frame sgbm_disparity: sgbm_disparity_auto, which row-tiles
+(sgbm_disparity_tiled) a frame that does not fit the card's free memory, and
+sgbm_disparity_fast, the reference's coarse-to-fine path.
+
 Every function runs on the device of the tensors it is given: CUDA tensors go
 through the kernels, CPU tensors through the plain versions beside them.
 ``SGBMConfig.backend`` selects TPU code paths and is ignored here; the scans
@@ -26,6 +30,8 @@ import torch
 from stereo_reconstruction_cv_tpu_torch import native
 from stereo_reconstruction_cv_tpu_torch.config import SGBMConfig
 from stereo_reconstruction_cv_tpu_torch.ops.cuda.cost import (
+    _halfpixel_range,
+    block_sum,
     check_cost_bounds,
     cost_volume,
     xsobel_clip,
@@ -128,19 +134,140 @@ def frame_bytes(H: int, W: int, cfg: SGBMConfig) -> int:
     return cells * 2 * (1 + volumes) + 64 * H * W
 
 
-def sgbm_disparity_auto(left: torch.Tensor, right: torch.Tensor, cfg: SGBMConfig):
-    """sgbm_disparity after checking that the frame fits the device's free
-    memory. Row tiling for frames that do not fit is ROADMAP.md A.11."""
-    if left.device.type == "cuda":
-        free, _total = torch.cuda.mem_get_info(left.device)
-        need = frame_bytes(*left.shape, cfg)
-        if need > free:
-            raise MemoryError(
-                f"frame {tuple(left.shape)} x {cfg.num_disparities} disparities needs "
-                f"~{need / 2**30:.1f} GiB, {free / 2**30:.1f} GiB free; row tiling "
-                "is not ported yet (ROADMAP.md queue A item 11)"
-            )
-    return sgbm_disparity(left, right, cfg)
+def fits_whole_frame(H: int, W: int, cfg: SGBMConfig, device) -> bool:
+    """Whether one frame's SGBM (frame_bytes) fits the free memory of a CUDA
+    device; frames on the CPU always do. The reference counts cells against
+    a TPU's HBM (``_fits_whole_frame``, 24e8 or 4e8 cells); the port counts
+    its own bytes against what the card has free."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return True
+    free, _total = torch.cuda.mem_get_info(device)
+    return frame_bytes(H, W, cfg) <= free
+
+
+def sgbm_disparity_auto(left: torch.Tensor, right: torch.Tensor, cfg: SGBMConfig,
+                        tile_rows: int = 512):
+    """sgbm_disparity, row-tiled (sgbm_disparity_tiled) only when the frame
+    does not fit the device's free memory."""
+    if fits_whole_frame(*left.shape, cfg, left.device):
+        return sgbm_disparity(left, right, cfg)
+    return sgbm_disparity_tiled(left, right, cfg, tile_rows=tile_rows)
+
+
+def sgbm_disparity_tiled(left: torch.Tensor, right: torch.Tensor, cfg: SGBMConfig,
+                         tile_rows: int = 512, halo: int = 32):
+    """SGBM over row tiles of `tile_rows`, each with `halo` rows of warm-start
+    overlap above and below (clamped at the image edges; the scheme of
+    parallel/sgm_sharded.py's halo mode), stitched; the speckle filter runs
+    on the whole map afterwards. Peak memory follows tile_rows, not H."""
+    H, W = left.shape
+    if H <= tile_rows:
+        return sgbm_disparity(left, right, cfg)
+    core = cfg.with_(speckle_window_size=0)
+    disps, valids = [], []
+    for y0 in range(0, H, tile_rows):
+        y1 = min(y0 + tile_rows, H)
+        a, b = max(y0 - halo, 0), min(y1 + halo, H)
+        d, v = sgbm_disparity(left[a:b], right[a:b], core)
+        disps.append(d[y0 - a:y1 - a])
+        valids.append(v[y0 - a:y1 - a])
+    disp, valid = torch.cat(disps), torch.cat(valids)
+    if cfg.speckle_window_size > 0:
+        valid = _speckle(disp, valid, cfg)
+    return disp, valid
+
+
+# ---------------------------------------------------------------------------
+# Coarse-to-fine fast path
+# ---------------------------------------------------------------------------
+
+def box2(img: torch.Tensor) -> torch.Tensor:
+    """2x box downsample of a (H, W) uint8 image: the rounded mean of each
+    2x2 block (OpenCV INTER_AREA at factor 2); an odd last row or column is
+    dropped."""
+    H, W = img.shape
+    a = img[:H - H % 2, :W - W % 2].to(torch.int32)
+    s = a[0::2, 0::2] + a[0::2, 1::2] + a[1::2, 0::2] + a[1::2, 1::2]
+    return ((s + 2) >> 2).to(torch.uint8)
+
+
+def shift_plane(a: torch.Tensor, s: int) -> torch.Tensor:
+    """a[y, x - s], edge-replicated (static shift)."""
+    W = a.shape[1]
+    return a[:, (torch.arange(W, device=a.device) - s).clamp(0, W - 1)]
+
+
+def warp_by_disp(planes, d0: torch.Tensor) -> list:
+    """planes[k][y, x - d0[y, x]] for integer d0 >= 0, the column clamped at
+    0 (edge replication): one gather where the reference chains a shift and
+    a select per disparity (a TPU stand-in for a gather)."""
+    W = d0.shape[1]
+    idx = (torch.arange(W, device=d0.device)[None, :] - d0.to(torch.int64)).clamp(min=0)
+    return [p.gather(1, idx) for p in planes]
+
+
+def _bt_aligned(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Symmetric BT between two aligned planes; each half-pixel range comes
+    from the plane's own neighbours."""
+    blo, bhi = _halfpixel_range(b)
+    alo, ahi = _halfpixel_range(a)
+    c0 = torch.clamp(torch.maximum(a - bhi, blo - a), min=0)
+    c1 = torch.clamp(torch.maximum(b - ahi, alo - b), min=0)
+    return torch.minimum(c0, c1)
+
+
+def sgbm_disparity_fast(left: torch.Tensor, right: torch.Tensor, cfg: SGBMConfig,
+                        refine_radius: int = 2):
+    """Coarse-to-fine SGBM (the reference's opt-in fast path): the full
+    pipeline at half resolution and half range on the 2x box-downsampled
+    pair (the kernels), the map upsampled (nearest, doubled), then each
+    pixel re-scored at full resolution over d0 +- refine_radius with the BT
+    + block cost (torch ops on 2r+1 planes), WTA and the parabolic
+    subpixel. Validity comes from the coarse level; the speckle filter runs
+    on the refined map. Raises where the coarse level's width leaves no
+    disparity column (a width the single-device check refuses)."""
+    H, W = left.shape
+    D = cfg.num_disparities
+    r = refine_radius
+    cfg_h = cfg.with_(num_disparities=max(16, D // 2), min_disparity=cfg.min_disparity // 2,
+                      speckle_window_size=0)
+    lh, rh = box2(left), box2(right)
+    try:
+        _validate(*lh.shape, cfg_h)
+    except ValueError as e:
+        raise ValueError(f"sgbm_disparity_fast: the half-resolution level {tuple(lh.shape)} "
+                         f"with {cfg_h.num_disparities} disparities: {e}") from None
+    d_h, v_h = sgbm_disparity(lh, rh, cfg_h)
+    d0f = (d_h * 2.0).repeat_interleave(2, 0).repeat_interleave(2, 1)
+    v0 = v_h.repeat_interleave(2, 0).repeat_interleave(2, 1)
+    if H % 2:  # the odd last row and column repeat their neighbours
+        d0f, v0 = torch.cat([d0f, d0f[-1:]]), torch.cat([v0, v0[-1:]])
+    if W % 2:
+        d0f, v0 = torch.cat([d0f, d0f[:, -1:]], 1), torch.cat([v0, v0[:, -1:]], 1)
+    lo = cfg.min_disparity
+    d0 = torch.clamp(torch.round(d0f), lo, lo + D - 1).to(torch.int32)
+    cap = cfg.pre_filter_cap
+    sl, sr = xsobel_clip(left, cap), xsobel_clip(right, cap)
+    rawl, rawr = left.to(torch.int32), right.to(torch.int32)
+    wsr, wraw = warp_by_disp((sr, rawr), d0)
+    Ck = torch.stack([_bt_aligned(sl, shift_plane(wsr, k))
+                      + (_bt_aligned(rawl, shift_plane(wraw, k)) >> 2)
+                      for k in range(-r, r + 1)], -1)
+    Ck = block_sum(Ck, cfg.block_size)
+    best_k = torch.argmin(Ck, -1)  # the first index on ties, as jnp.argmin
+    minC = Ck.gather(-1, best_k[..., None])[..., 0]
+    Cm1 = Ck.gather(-1, (best_k - 1).clamp(0, 2 * r)[..., None])[..., 0]
+    Cp1 = Ck.gather(-1, (best_k + 1).clamp(0, 2 * r)[..., None])[..., 0]
+    denom = torch.clamp(Cm1 + Cp1 - 2 * minC, min=1).to(torch.float32)
+    frac = (Cm1 - Cp1).to(torch.float32) / (2.0 * denom)
+    interior = (best_k > 0) & (best_k < 2 * r)
+    disp = (d0 + best_k - r).to(torch.float32) + torch.where(interior, frac, torch.zeros_like(frac))
+    disp = torch.clamp(disp, float(lo), float(lo + D - 1))
+    valid = v0
+    if cfg.speckle_window_size > 0:
+        valid = _speckle(disp, valid, cfg)
+    return disp, valid
 
 
 def sgbm_disparity_host_speckle(left: torch.Tensor, right: torch.Tensor, cfg: SGBMConfig):

@@ -13,8 +13,12 @@ flight nor a buffer the allocator has handed out again. Each batch's pinned
 tensor comes from torch's caching host allocator, which reuses it only after
 the copy from it has completed, so a frame is never overwritten mid-copy.
 
-The reference's ``sharding=`` (batches placed on a device mesh) belongs to the
-multi-device port (ROADMAP A.16) and is not here.
+With ``sharding=`` (``parallel.mesh.batch_row_sharding`` or
+``batch_sharding``), each batch is placed on a device mesh instead: every
+grid cell's slice of a frame (its pairs, its rows) is copied from the pinned
+batch to its device on that device's side stream, one copy per frame slice,
+and the batch comes out as one ``Sharded`` per column; the consumer's stream
+on each device waits on that device's event.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 
 from stereo_reconstruction_cv_tpu_torch import native
 from stereo_reconstruction_cv_tpu_torch.errors import DataError
+from stereo_reconstruction_cv_tpu_torch.parallel.mesh import Sharded, Sharding, block_ranges
 
 
 def _read(path: str) -> bytes:
@@ -43,8 +48,10 @@ class PrefetchLoader:
     of them decoded and copied ahead. `decoder` is one of native.DECODERS.
     images_decoded and h2d_copies count this loader's decodes and
     host -> device copies (one per batch when all its frames share a shape,
-    else one per column). Close it (or use it in a with block) to stop its
-    threads."""
+    else one per column; with `sharding`, one per frame slice). With
+    `sharding` (a mesh.Sharding over 'data', or 'data' and 'space') each
+    column comes as a Sharded tensor on the mesh and `device` is not used.
+    Close it (or use it in a with block) to stop its threads."""
 
     def __init__(
         self,
@@ -55,6 +62,7 @@ class PrefetchLoader:
         num_threads: int = 4,
         decoder: str = "libjpeg",
         device="cuda",
+        sharding: Sharding | None = None,
     ):
         native.check_decoder(decoder)
         self.items = [tuple(row) for row in items]
@@ -66,8 +74,17 @@ class PrefetchLoader:
         self.images_decoded = 0
         self.h2d_copies = 0
         self._lock = threading.Lock()
+        self.sharding = sharding
         self._stream = None
-        if self.device.type == "cuda":
+        self._streams = {}  # with a sharding: a side stream per CUDA device of the mesh
+        if sharding is not None:
+            if sharding.spec not in (("data",), ("data", "space")):
+                raise ValueError(f"sharding spec {sharding.spec}: ('data',) or ('data', 'space')")
+            for row in sharding.mesh.devices:
+                for d in row:
+                    if d.type == "cuda" and d not in self._streams:
+                        self._streams[d] = torch.cuda.Stream(d)
+        elif self.device.type == "cuda":
             if self.device.index is None:
                 self.device = torch.device("cuda", torch.cuda.current_device())
             self._stream = torch.cuda.Stream(self.device)
@@ -92,7 +109,7 @@ class PrefetchLoader:
         column; each frame's slot; whether the first form was taken."""
         cols = range(len(batch[0]))
         shapes = [[native.jpeg_info(d, self.decoder)[:2] for d in datas[c]] for c in cols]
-        pin = self._stream is not None
+        pin = self._stream is not None or bool(self._streams)
         extra = () if self.gray else (3,)
 
         def empty(*shape):
@@ -109,13 +126,16 @@ class PrefetchLoader:
         return bufs, [[b[i] for i in range(len(batch))] for b in bufs], False
 
     def _load_batch(self, batch: List[Tuple[str, ...]]):
-        """(column tensors on the device, the copy's event or None)."""
+        """(column tensors on the device, the copy's event or None; with a
+        sharding, Sharded columns and an event per CUDA device)."""
         datas = [[_read(row[c]) for row in batch] for c in range(len(batch[0]))]
         bufs, slots, stacked = self._host_buffers(batch, datas)
         futs = [self._decode_pool.submit(self._decode, row[c], datas[c][i], slots[c][i])
                 for c in range(len(slots)) for i, row in enumerate(batch)]
         for f in futs:
             f.result()
+        if self.sharding is not None:
+            return self._place(tuple(bufs[0]) if stacked else tuple(bufs))
         if self._stream is None:
             out = bufs
             event = None
@@ -129,6 +149,34 @@ class PrefetchLoader:
                 self.h2d_copies += len(out)
         cols = tuple(out[0]) if stacked else tuple(out)
         return cols, event
+
+    def _place(self, cols):
+        """Host columns (B, H, ...) -> (Sharded columns, {device: event}):
+        each grid cell's frame slices copied on its device's side stream."""
+        mesh = self.sharding.mesh
+        events, out = {}, []
+        for col in cols:
+            brs, rrs = block_ranges(col.shape, self.sharding)
+            blocks = []
+            for (b0, b1), row in zip(brs, mesh.devices):
+                blocks.append([])
+                for (r0, r1), dev in zip(rrs, row):
+                    part = col[b0:b1, r0:r1]
+                    if dev.type != "cuda":
+                        blocks[-1].append(part.clone())
+                        continue
+                    with torch.cuda.device(dev), torch.cuda.stream(self._streams[dev]):
+                        blk = torch.empty(part.shape, dtype=part.dtype, device=dev)
+                        for k in range(part.shape[0]):  # each frame slice is contiguous
+                            blk[k].copy_(part[k], non_blocking=True)
+                    blocks[-1].append(blk)
+                    with self._lock:
+                        self.h2d_copies += part.shape[0]
+            out.append(Sharded(self.sharding, blocks, col.shape))
+        for dev, stream in self._streams.items():
+            events[dev] = torch.cuda.Event()
+            events[dev].record(stream)
+        return tuple(out), events
 
     def __iter__(self) -> Iterator[Tuple[torch.Tensor, ...]]:
         batches = self._batches()
@@ -144,7 +192,16 @@ class PrefetchLoader:
             if nxt < len(batches):
                 submit(nxt)
             cols, event = inflight.pop(i).result()
-            if event is not None:
+            if isinstance(event, dict):  # a mesh: each device's event and blocks
+                for dev, ev in event.items():
+                    stream = torch.cuda.current_stream(dev)
+                    stream.wait_event(ev)
+                    for col in cols:
+                        for row in col.blocks:
+                            for t in row:
+                                if t.device == dev:
+                                    t.record_stream(stream)
+            elif event is not None:
                 stream = torch.cuda.current_stream(self.device)
                 stream.wait_event(event)
                 for t in cols:

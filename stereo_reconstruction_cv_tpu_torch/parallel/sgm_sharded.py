@@ -1,0 +1,295 @@
+"""Row-sharded, batch-parallel SGBM over a device mesh (after ``stereo_reconstruction_cv_tpu/parallel/sgm_sharded.py``).
+
+Pairs are split two ways over a ``parallel.mesh.Mesh``:
+
+  batch -> 'data'  (independent pairs, no communication)
+  rows  -> 'space' (neighbouring shards exchange rows or DP carries)
+
+Horizontal paths are row-local. Vertical and diagonal paths carry state
+across rows, and two modes handle it:
+
+- halo warm-start (``sharded_sgbm_disparity``, the default): each shard takes
+  ``halo`` rows from each interior neighbour, runs ``ops.disparity.
+  sgbm_disparity`` on the extended block and crops it. At a true image edge
+  it takes no rows, so its scans start where the single-device ones do. (The
+  reference's docstring says so too, but its ``ppermute`` hands the edge
+  shards ``halo`` zero rows: reference fault 12, ROADMAP.md C.)
+- exact (``exact=True``, ``sharded_sgbm_disparity_exact``): the same maps as
+  the single-device ``sgbm_disparity``, bit for bit, on any mesh. The cost
+  volume of each shard is computed on its rows plus the Sobel and box halo
+  (``cost_halo``) of each interior neighbour; the vertical and diagonal
+  sweeps hand their last row's DP carry to the next shard along the path
+  (``sgm_path_sweep``'s carry, ``ops/cuda/sgm.py:path_sweep_cuda``); the last
+  direction, fused with WTA, is a horizontal one (``EXACT_FUSED``), so it
+  needs no carry. The handoffs go out in wavefront order: direction k of
+  shard s is issued with direction k + 1 of the shard before it, so with a
+  device per shard every device has a sweep to run while its carry travels.
+
+The speckle filter runs sharded too (``sharded_speckle_filter``): each
+shard labels its rows (``speckle_labels``) and counts its pieces; the pieces
+that meet across a shard boundary are joined by the same edge rule on the
+boundary rows, and their summed sizes go back through each shard's labels.
+The result equals the single-device filter exactly; counts are int64 (the
+reference's 7-bit count field is reference fault 3).
+
+Inputs are (B, H, W) uint8 tensors, placed with
+``mesh.batch_row_sharding`` (or already ``Sharded`` that way); outputs are
+``Sharded`` the same way (``mesh.gather`` assembles them). Each shard's
+frames run through the port's kernels where its device is a CUDA device and
+through their plain versions on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Sequence
+
+import numpy as np
+import torch
+
+from stereo_reconstruction_cv_tpu_torch.config import SGBMConfig
+from stereo_reconstruction_cv_tpu_torch.ops import disparity as DP
+from stereo_reconstruction_cv_tpu_torch.ops.cuda import sgm as SK
+from stereo_reconstruction_cv_tpu_torch.ops.cuda import speckle as SPK
+from stereo_reconstruction_cv_tpu_torch.ops.cuda.cost import cost_volume
+from stereo_reconstruction_cv_tpu_torch.ops.cuda.lr import lr_check_maps
+from stereo_reconstruction_cv_tpu_torch.parallel.mesh import (
+    Mesh,
+    Sharded,
+    batch_row_sharding,
+    from_next,
+    from_prev,
+    place,
+)
+
+# The direction fused with WTA in exact mode: a horizontal one, row-local.
+# S is a sum of integers, so the maps do not depend on which runs last.
+EXACT_FUSED = (-1, 0)
+
+
+def cost_halo(block_size: int) -> int:
+    """Rows of neighbour a shard needs for an exact cost volume: the box's
+    radius, plus one for the Sobel that the box's outermost row reads
+    (6 at block size 11, the reference's _COST_HALO)."""
+    return block_size // 2 + 1
+
+
+def _on_mesh(mesh: Mesh, x) -> Sharded:
+    if isinstance(x, Sharded):
+        if x.mesh is not mesh or x.sharding.spec != ("data", "space"):
+            raise ValueError("a Sharded input must be placed on this mesh with batch_row_sharding")
+        return x
+    return place(x, batch_row_sharding(mesh))
+
+
+def _by_frame(mesh: Mesh, fn: Callable, *xs: Sharded):
+    """fn(*[the ns row blocks of one frame] per input) -> tuple of per-shard
+    lists of maps, for every frame; reassembled into Sharded outputs."""
+    nd, ns = mesh.shape["data"], mesh.shape["space"]
+    outs = None
+    for i in range(nd):
+        b = xs[0].blocks[i][0].shape[0]
+        per = [fn(*[[x.blocks[i][j][k] for j in range(ns)] for x in xs]) for k in range(b)]
+        if outs is None:
+            outs = [[[None] * ns for _ in range(nd)] for _ in per[0]]
+        for o, out in enumerate(outs):
+            for j in range(ns):
+                out[i][j] = torch.stack([p[o][j] for p in per])
+    sharding = batch_row_sharding(mesh)
+    return tuple(Sharded(sharding, out, xs[0].shape) for out in outs)
+
+
+def _extend(blocks: Sequence[torch.Tensor], n: int):
+    """Each shard's rows with n rows of each interior neighbour -> (extended
+    blocks, rows added on top of each)."""
+    if n == 0 or len(blocks) == 1:
+        return list(blocks), [0] * len(blocks)
+    tops, bots = from_prev(blocks, n), from_next(blocks, n)
+    ext = [torch.cat([t for t in (top, blk, bot) if t is not None])
+           for top, blk, bot in zip(tops, blocks, bots)]
+    return ext, [0 if top is None else n for top in tops]
+
+
+def sharded_sgbm_disparity(mesh: Mesh, left, right, cfg: SGBMConfig, halo: int = 32,
+                           exact: bool = False):
+    """(B, H, W) uint8 pairs -> (disparity, valid), each Sharded (B, H, W)
+    over ('data', 'space'). Halo warm-start by default; exact=True hands DP
+    carries between shards instead (sharded_sgbm_disparity_exact), the
+    single-device maps bit for bit."""
+    if exact:
+        return sharded_sgbm_disparity_exact(mesh, left, right, cfg)
+    L, R = _on_mesh(mesh, left), _on_mesh(mesh, right)
+    ns = mesh.shape["space"]
+    halo = 0 if ns == 1 else min(halo, L.shape[1] // ns)
+    core = cfg.with_(speckle_window_size=0)
+
+    def frame(ls, rs):
+        h = ls[0].shape[0]
+        le, tops = _extend(ls, halo)
+        re, _ = _extend(rs, halo)
+        maps = [DP.sgbm_disparity(a, b, core) for a, b in zip(le, re)]
+        return ([d[t:t + h] for (d, _), t in zip(maps, tops)],
+                [v[t:t + h] for (_, v), t in zip(maps, tops)])
+
+    disp, valid = _by_frame(mesh, frame, L, R)
+    if cfg.speckle_window_size > 0:
+        valid = _sharded_speckle_with_margin(mesh, disp, valid, cfg)
+    return disp, valid
+
+
+def _exact_frame(ls: List[torch.Tensor], rs: List[torch.Tensor], cfg: SGBMConfig):
+    """One frame's row blocks -> per-shard (disp, valid), the single-device
+    maps' rows exactly (module docstring)."""
+    ns = len(ls)
+    h = ls[0].shape[0]
+    D, md = cfg.num_disparities, cfg.min_disparity
+    x0 = md + D
+    hb = cost_halo(cfg.block_size)
+    if ns > 1 and h < hb:
+        raise ValueError(f"shards of {h} rows: the exact cost volume needs {hb} rows of "
+                         "each neighbour")
+    le, tops = _extend(ls, hb)
+    re, _ = _extend(rs, hb)
+    Cs = []
+    for a, b, t in zip(le, re, tops):
+        C = cost_volume(*DP.cost_planes(a, b, cfg.pre_filter_cap), D, md, cfg.block_size)
+        Cs.append(C[t:t + h])
+    groups = [g for g in SK.delta_groups(cfg.num_directions, EXACT_FUSED) if g]
+    vols = [[torch.empty_like(C) for _ in groups] for C in Cs]
+    # Wavefront order: direction k of the shard at position p along the path
+    # goes out at step k + p; a shard's carry is consumed one step after it
+    # was made.
+    order = [(gi, d) for gi, g in enumerate(groups) for d in g]
+    tasks = sorted((k + (0 if dy == 0 else (j if dy > 0 else ns - 1 - j)), j, k)
+                   for k, (_, (dx, dy)) in enumerate(order) for j in range(ns))
+    carries, written = {}, set()
+    for _, j, k in tasks:
+        gi, (dx, dy) = order[k]
+        cin = cout = None
+        if dy != 0 and ns > 1:
+            if 0 <= j - dy < ns:  # the shard before this one along the path
+                cin = carries.pop((j - dy, k)).to(Cs[j].device, non_blocking=True)
+            if 0 <= j + dy < ns:
+                cout = carries[(j, k)] = torch.empty(Cs[j].shape[1:], dtype=torch.int32,
+                                                     device=Cs[j].device)
+        SK.path_sweep(Cs[j], vols[j][gi], dx, dy, cfg.p1, cfg.p2, (j, gi) in written, cin, cout)
+        written.add((j, gi))
+    disps, valids = [], []
+    for j in range(ns):
+        disp, valid, best, minS = SK.sweep_wta(Cs[j], vols[j], cfg.num_directions, cfg.p1,
+                                               cfg.p2, cfg.uniqueness_ratio, md, EXACT_FUSED)
+        Cs[j] = vols[j] = None
+        if cfg.disp12_max_diff >= 0:
+            lr_check_maps(best, minS, disp, D, md, cfg.disp12_max_diff, out=valid)
+        disps.append(torch.nn.functional.pad(disp, (x0, 0), value=float(md - 1)))
+        valids.append(torch.nn.functional.pad(valid, (x0, 0), value=False))
+    return disps, valids
+
+
+def sharded_sgbm_disparity_exact(mesh: Mesh, left, right, cfg: SGBMConfig):
+    """Row-sharded SGBM bit-identical to the single-device ``sgbm_disparity``
+    on any mesh shape (module docstring): exact cost halos, carried
+    vertical and diagonal sweeps, a horizontal fused WTA, the LR check and
+    the sharded speckle filter."""
+    L, R = _on_mesh(mesh, left), _on_mesh(mesh, right)
+    DP._validate(L.shape[1], L.shape[2], cfg)
+    disp, valid = _by_frame(mesh, lambda ls, rs: _exact_frame(ls, rs, cfg), L, R)
+    if cfg.speckle_window_size > 0:
+        valid = _sharded_speckle_with_margin(mesh, disp, valid, cfg)
+    return disp, valid
+
+
+# ---------------------------------------------------------------------------
+# Sharded speckle filter
+# ---------------------------------------------------------------------------
+
+def _local_labels(disp: torch.Tensor, valid: torch.Tensor, max_diff: float) -> torch.Tensor:
+    """The flood's fixpoint labels of one shard: the label kernel on a CUDA
+    device, the plain flood run to convergence on the CPU."""
+    if disp.device.type == "cpu":
+        return SPK.speckle_labels_plain(disp, valid, max_diff, max_rounds=disp.numel() + 1)[0]
+    return SPK.speckle_labels_cuda(disp, valid, max_diff)
+
+
+def _roots(a: np.ndarray, b: np.ndarray):
+    """Connected components of the graph with edges (a[e], b[e]) -> (nodes,
+    one root index per node): min-label hooking with pointer jumping."""
+    nodes, inv = np.unique(np.concatenate([a, b]), return_inverse=True)
+    ea, eb = inv[:a.size], inv[a.size:]
+    parent = np.arange(nodes.size)
+    while True:
+        lo = np.minimum(parent[ea], parent[eb])
+        new = parent.copy()
+        np.minimum.at(new, ea, lo)
+        np.minimum.at(new, eb, lo)
+        new = new[new]
+        if np.array_equal(new, parent):
+            return nodes, parent
+        parent = new
+
+
+def _speckle_frame(ds: List[torch.Tensor], vs: List[torch.Tensor], max_size: int,
+                   max_diff: float) -> List[torch.Tensor]:
+    """One frame's row blocks -> per-shard keep masks, equal to the
+    single-device filter's rows."""
+    ns = len(ds)
+    labels = [_local_labels(d, v, max_diff) for d, v in zip(ds, vs)]
+    n = labels[0].numel() + 1  # labels of one shard, its sink included
+    sizes = [torch.bincount(lab.reshape(-1).to(torch.int64), minlength=n) for lab in labels]
+    if ns > 1:
+        # Pieces meet across boundary j | j + 1 where the rows on either side
+        # are joined: both valid and |d - d'| <= max_diff in f32, as within a
+        # shard. A piece is (shard, local label), numbered j * n + label.
+        ea, eb, nodes_size = [], [], {}
+        for j in range(ns - 1):
+            dev = ds[j].device
+            d_lo = ds[j + 1][0].to(dev, torch.float32)
+            joined = (((ds[j][-1].to(torch.float32) - d_lo).abs() <= max_diff)
+                      & vs[j][-1] & vs[j + 1][0].to(dev))
+            la, lb = labels[j][-1], labels[j + 1][0].to(dev)
+            sa, sb = sizes[j][la.long()], sizes[j + 1][lb.long()].to(dev)
+            rec = torch.stack([la.long() + j * n, lb.long() + (j + 1) * n, sa, sb])
+            rec = rec[:, joined].cpu().numpy()
+            ea.append(rec[0])
+            eb.append(rec[1])
+            nodes_size.update(zip(rec[0].tolist(), rec[2].tolist()))
+            nodes_size.update(zip(rec[1].tolist(), rec[3].tolist()))
+        a, b = np.concatenate(ea), np.concatenate(eb)
+        if a.size:
+            nodes, root = _roots(a, b)
+            total = np.zeros(nodes.size, np.int64)
+            np.add.at(total, root, [nodes_size[g] for g in nodes.tolist()])
+            total = total[root]
+            for j in range(ns):
+                mine = (nodes >= j * n) & (nodes < (j + 1) * n)
+                if mine.any():
+                    idx = torch.from_numpy(nodes[mine] - j * n).to(sizes[j].device)
+                    sizes[j][idx] = torch.from_numpy(total[mine]).to(sizes[j].device)
+    return [v & (sz[lab.long()] > max_size) for v, sz, lab in zip(vs, sizes, labels)]
+
+
+def sharded_speckle_filter(mesh: Mesh, disp, valid, max_speckle_size: int = 100,
+                           max_diff: float = 32.0) -> Sharded:
+    """Keep mask of the speckle filter, Sharded (B, H, W) like its inputs
+    (placed with batch_row_sharding): valid pixels whose 4-connected
+    component (|d - d'| <= max_diff) holds more than max_speckle_size
+    pixels, over the whole frame (cv2.filterSpeckles)."""
+    if max_speckle_size < 0:
+        raise ValueError(f"max_speckle_size={max_speckle_size} must be >= 0")
+    Dm, Vm = _on_mesh(mesh, disp), _on_mesh(mesh, valid)
+    return _by_frame(mesh, lambda ds, vs: (_speckle_frame(ds, vs, max_speckle_size, max_diff),),
+                     Dm, Vm)[0]
+
+
+def _sharded_speckle_with_margin(mesh: Mesh, disp: Sharded, valid: Sharded,
+                                 cfg: SGBMConfig) -> Sharded:
+    """The sharded speckle filter on the columns right of the margin x <
+    min_disp + num_disp (invalid by construction), as ops.disparity._speckle
+    slices them; the margin comes back not kept."""
+    x0 = cfg.min_disparity + cfg.num_disparities
+
+    def frame(ds, vs):
+        keep = _speckle_frame([d[:, x0:] for d in ds], [v[:, x0:] for v in vs],
+                              cfg.speckle_window_size, float(cfg.speckle_range))
+        return ([torch.nn.functional.pad(k, (x0, 0), value=False) for k in keep],)
+
+    return _by_frame(mesh, frame, disp, valid)[0]

@@ -7,14 +7,17 @@ batch k computes; each pair's points are compacted on the device and copied
 to pinned host memory asynchronously, so the PLY write of one batch runs on
 the host while the device computes the next.
 
-The reference's ``mesh=`` (batches sharded over a device mesh) belongs to the
-multi-device port (ROADMAP A.16) and is not here.
+With ``mesh=`` (``parallel.mesh.Mesh``) the loader places each batch on the
+mesh (pairs over 'data', rows over 'space'), SGBM runs row-sharded
+(``parallel.sgm_sharded.sharded_sgbm_disparity``, halo warm-start, as the
+reference's step calls it) and each pair's maps are gathered onto the mesh's
+first device before its reprojection and cloud, in order.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -23,18 +26,25 @@ from stereo_reconstruction_cv_tpu_torch.config import SGBMConfig
 from stereo_reconstruction_cv_tpu_torch.io import ply as PLY
 from stereo_reconstruction_cv_tpu_torch.ops import disparity as DP
 from stereo_reconstruction_cv_tpu_torch.ops import geometry as G
+from stereo_reconstruction_cv_tpu_torch.parallel import mesh as M
 from stereo_reconstruction_cv_tpu_torch.parallel.prefetch import PrefetchLoader
+from stereo_reconstruction_cv_tpu_torch.parallel.sgm_sharded import sharded_sgbm_disparity
 
 
-def dense_batch_step(left: torch.Tensor, right: torch.Tensor, Q, cfg: SGBMConfig):
+def dense_batch_step(left, right, Q, cfg: SGBMConfig, mesh: Optional[M.Mesh] = None):
     """(B, H, W) uint8 pairs -> (disparity (B, H, W), points (B, H, W, 3),
     valid (B, H, W)) on their device. The port's sgbm_disparity takes one
-    frame, so the batch runs one pair after the other. No ``mesh=``: the
-    sharded step is ROADMAP A.16."""
-    Qt = torch.as_tensor(np.asarray(Q), dtype=torch.float32, device=left.device)
-    maps = [DP.sgbm_disparity(l, r, cfg) for l, r in zip(left, right)]
-    disp = torch.stack([d for d, _ in maps])
-    valid = torch.stack([v for _, v in maps])
+    frame, so the batch runs one pair after the other. With `mesh`, the
+    pairs (tensors, or Sharded by batch_row_sharding) run through
+    sharded_sgbm_disparity and the maps are gathered onto the mesh's first
+    device, where the points are computed."""
+    if mesh is not None:
+        disp, valid = (M.gather(x) for x in sharded_sgbm_disparity(mesh, left, right, cfg))
+    else:
+        maps = [DP.sgbm_disparity(l, r, cfg) for l, r in zip(left, right)]
+        disp = torch.stack([d for d, _ in maps])
+        valid = torch.stack([v for _, v in maps])
+    Qt = torch.as_tensor(np.asarray(Q), dtype=torch.float32, device=disp.device)
     pts = torch.stack([G.reproject_image_to_3d(d, Qt) for d in disp])
     return disp, pts, valid
 
@@ -62,6 +72,7 @@ def stream_reconstruct(
     prefetch: int = 2,
     decoder: str = "libjpeg",
     device="cuda",
+    mesh: Optional[M.Mesh] = None,
 ) -> List[str]:
     """Stream stereo pairs (left, right JPEG paths) -> per-pair PLY point
     clouds ``out_dir/cloud_{idx:04d}.ply``. Returns the paths.
@@ -70,9 +81,11 @@ def stream_reconstruct(
     valid & finite & disp > 0, in row-major order, as the reference writes
     them. On the device the points go to pinned host buffers through an
     async copy and an event; a batch's clouds are written once the next
-    batch's compute is queued. No ``mesh=`` (ROADMAP A.16)."""
+    batch's compute is queued. With `mesh`, batches go onto the mesh
+    (dense_batch_step) and `device` is not used: the clouds come from the
+    mesh's first device."""
     os.makedirs(out_dir, exist_ok=True)
-    dev = torch.device(device)
+    dev = torch.device(device) if mesh is None else mesh.devices[0][0]
     on_card = dev.type == "cuda"
     outputs: List[str] = []
     pending: list = []  # (path, host points, host count, event) of the batch before
@@ -83,10 +96,11 @@ def stream_reconstruct(
                 event.synchronize()
             PLY.write_ply(path, host_pts[: int(host_n[0])].numpy())
 
+    sharding = None if mesh is None else M.batch_row_sharding(mesh)
     with PrefetchLoader(pairs, batch_size=batch_size, prefetch=prefetch, gray=True,
-                        decoder=decoder, device=dev) as loader:
+                        decoder=decoder, device=dev, sharding=sharding) as loader:
         for left, right in loader:
-            disp, pts, valid = dense_batch_step(left, right, Q, cfg)
+            disp, pts, valid = dense_batch_step(left, right, Q, cfg, mesh)
             batch = []
             for i in range(disp.shape[0]):
                 points, count = cloud_points(disp[i], pts[i], valid[i])

@@ -1282,3 +1282,84 @@ def test_stereo_pool_launches_the_dense_kernels_and_train_step_none(dev, tmp_pat
                          XT._stereo_batch(pool, gen, 2, 64))
     assert np.isfinite(float(loss))
     assert [dict(c) for c in counts] == before
+
+
+# ---------------------------------------------------------------------------
+# The carried path sweep and the row-sharded SGBM over a mesh of the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("D", [1, 17, 33, 128, 256])
+@pytest.mark.parametrize("H,W", [(1, 1), (1, 40), (5, 37), (30, 9)])
+@pytest.mark.parametrize("carry", ["zero", "random", "in only", "out only"])
+def test_carried_path_sweep_equals_plain(dev, D, H, W, carry):
+    """Every direction with dy != 0, written and accumulated: the deltas and
+    the last row's lam against the plain scan from the same carry (None on
+    the side not given); D % K != 0 (17, 33) takes the scalar accesses."""
+    rng = np.random.default_rng(D * 7 + H * W)
+    C = torch.from_numpy(rng.integers(0, 20000, (H, W, D), dtype=np.int16)).to(dev)
+    start = torch.from_numpy(rng.integers(0, 1 << 16, (H, W, D)).astype(np.uint16).view(np.int16)).to(dev)
+    cin = None
+    if carry != "out only":
+        cin = torch.from_numpy((rng.integers(0, 30000, (W, D)) if carry != "zero"
+                                else np.zeros((W, D))).astype(np.int32)).to(dev)
+    for dx, dy in [d for d in SK.DIRS_8 if d[1] != 0]:
+        delta, lam = SK.path_delta_carry_plain(C, dx, dy, P1, P2, cin)
+        for accumulate in (False, True):
+            acc = start.clone()
+            cout = None if carry == "in only" else torch.full((W, D), -7, dtype=torch.int32,
+                                                               device=dev)
+            SK.path_sweep_cuda(C, acc, dx, dy, P1, P2, accumulate, cin, cout)
+            torch.cuda.synchronize()
+            want = ((SK.u16(start) if accumulate else 0) + delta) & 0xFFFF
+            assert torch.equal(SK.u16(acc), want), (dx, dy, accumulate)
+            if cout is not None:
+                assert torch.equal(cout, lam), (dx, dy, accumulate)
+
+
+def _cuda_mesh(nd, ns):
+    from stereo_reconstruction_cv_tpu_torch.parallel import mesh as M
+
+    n = torch.cuda.device_count()
+    return M.make_mesh(nd, ns, devices=[torch.device("cuda", i % n) for i in range(nd * ns)])
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2), (1, 3)])
+@pytest.mark.parametrize("nd,D,md", [(8, 16, 0), (5, 33, 3)])
+def test_exact_sharded_sgbm_on_the_card_equals_single_device(dev, shape, nd, D, md):
+    from stereo_reconstruction_cv_tpu_torch.parallel import mesh as M
+    from stereo_reconstruction_cv_tpu_torch.parallel import sgm_sharded as SS
+    from stereo_reconstruction_cv_tpu_torch.tools.probe_sweep import textured_pair
+
+    rng = np.random.default_rng(D + nd)
+    pairs = [textured_pair(rng, 48, 101, 9) for _ in range(shape[0])]
+    L = torch.from_numpy(np.stack([p[0] for p in pairs])).to(dev)
+    R = torch.from_numpy(np.stack([p[1] for p in pairs])).to(dev)
+    cfg = DP.SGBMConfig(num_disparities=D, min_disparity=md, num_directions=nd,
+                        speckle_window_size=20)
+    before = dict(SK.launches)
+    d, v = (M.gather(x, dev) for x in SS.sharded_sgbm_disparity(_cuda_mesh(*shape), L, R, cfg,
+                                                                exact=True))
+    assert SK.launches["sgm_path_sweep_carry"] > before["sgm_path_sweep_carry"]
+    for k in range(shape[0]):
+        d1, v1 = DP.sgbm_disparity(L[k], R[k], cfg)
+        assert torch.equal(d[k], d1) and torch.equal(v[k], v1)
+
+
+@pytest.mark.parametrize("max_size", [50, 200])
+def test_sharded_speckle_on_the_card_equals_single_device(dev, max_size):
+    from stereo_reconstruction_cv_tpu_torch.parallel import mesh as M
+    from stereo_reconstruction_cv_tpu_torch.parallel import sgm_sharded as SS
+
+    rng = np.random.default_rng(max_size)
+    B, H, W = 2, 96, 128
+    disp = np.full((B, H, W), 10.0, np.float32)
+    valid = rng.uniform(size=(B, H, W)) > 0.15
+    for (y0, y1, x0, x1), dv in [((10, 90, 5, 8), 200.0), ((22, 27, 40, 45), 120.0),
+                                 ((65, 80, 90, 100), 90.0), ((40, 55, 100, 120), 60.0)]:
+        disp[:, y0:y1, x0:x1] = dv
+        valid[:, y0:y1, x0:x1] = True
+    disp[1] = (rng.integers(0, 6, size=(H, W)) * 40).astype(np.float32)
+    d, v = torch.from_numpy(disp).to(dev), torch.from_numpy(valid).to(dev)
+    keep = M.gather(SS.sharded_speckle_filter(_cuda_mesh(2, 4), d, v, max_size, 32.0), dev)
+    for k in range(B):
+        assert torch.equal(keep[k], SPK.speckle_filter(d[k], v[k], max_size, 32.0))

@@ -226,6 +226,8 @@ def test_port_imports_no_jax():
         "import stereo_reconstruction_cv_tpu_torch.benchmarks, stereo_reconstruction_cv_tpu_torch.utils.synth\n"
         "import stereo_reconstruction_cv_tpu_torch.parallel.prefetch\n"
         "import stereo_reconstruction_cv_tpu_torch.parallel.streaming\n"
+        "import stereo_reconstruction_cv_tpu_torch.parallel.mesh\n"
+        "import stereo_reconstruction_cv_tpu_torch.parallel.sgm_sharded\n"
         "import stereo_reconstruction_cv_tpu_torch.models.xfeat_train\n"
         "import stereo_reconstruction_cv_tpu_torch.tools.xfeat_warpcheck\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
