@@ -25,9 +25,12 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
+
+from stereo_reconstruction_cv_tpu_torch.utils.profiling import span
 
 _PKG = Path(__file__).resolve().parent
 ROOT = _PKG.parent
@@ -49,6 +52,7 @@ GXX_FLAGS = ("-O3", "-fPIC", "-std=c++17")
 NVJPEG_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_build_lock = threading.Lock()  # one build at a time among a process's threads
 
 
 def _digest(sources, flags) -> str:
@@ -81,25 +85,32 @@ def _compile(cmd_prefix, sources, flags, name: str, libs=()) -> Path:
     Each source is compiled to an object by its own process, all started
     together, and the objects are then linked with -shared and `libs`. The output goes
     to a per-process temporary name and is renamed into place, so concurrent
-    first uses (test workers) never load a partial file. The compilers'
-    messages are kept beside the library."""
+    first uses (test workers) never load a partial file; the threads of one
+    process (a loader's decode threads) build in turn, so a later one finds
+    the library built. The compilers' messages are kept beside the
+    library."""
     out = BUILD_DIR / f"{name}-{_digest(sources, (*flags, *libs))}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
-    log: list = []
-    try:
-        _run([[*cmd_prefix, *flags, "-c", "-o", str(o), str(src)]
-              for o, src in zip(objs, sources)], log, name)
-        _run([[*cmd_prefix, "-shared", "-o", str(tmp), *map(str, objs), *libs]], log, name)
-        os.replace(tmp, out)
-    finally:
-        out.with_suffix(".log").write_text("".join(log))
-        tmp.unlink(missing_ok=True)
-        for o in objs:
-            o.unlink(missing_ok=True)
+    with _build_lock:
+        if out.exists():
+            return out
+        with span("build"):
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+            log: list = []
+            try:
+                _run([[*cmd_prefix, *flags, "-c", "-o", str(o), str(src)]
+                      for o, src in zip(objs, sources)], log, name)
+                _run([[*cmd_prefix, "-shared", "-o", str(tmp), *map(str, objs), *libs]],
+                     log, name)
+                os.replace(tmp, out)
+            finally:
+                out.with_suffix(".log").write_text("".join(log))
+                tmp.unlink(missing_ok=True)
+                for o in objs:
+                    o.unlink(missing_ok=True)
     return out
 
 

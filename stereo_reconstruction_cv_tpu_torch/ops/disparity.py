@@ -39,6 +39,7 @@ from stereo_reconstruction_cv_tpu_torch.ops.cuda.cost import (
 from stereo_reconstruction_cv_tpu_torch.ops.cuda.lr import lr_check_maps
 from stereo_reconstruction_cv_tpu_torch.ops.cuda.sgm import check_sgm_bounds, sgm_wta
 from stereo_reconstruction_cv_tpu_torch.ops.cuda.speckle import speckle_filter
+from stereo_reconstruction_cv_tpu_torch.utils.profiling import span
 
 
 def _validate(H: int, W: int, cfg: SGBMConfig) -> None:
@@ -82,26 +83,30 @@ def sgbm_disparity(left: torch.Tensor, right: torch.Tensor, cfg: SGBMConfig):
     aggregation replicate at that cropped boundary. OpenCV's prefilter pins the
     first and last column of every cost plane, raw ones included, to
     pre_filter_cap."""
-    H, W = left.shape
-    if right.shape != (H, W) or right.device != left.device:
-        raise ValueError("left and right must share one (H, W) shape and device")
-    _validate(H, W, cfg)
-    x0 = cfg.min_disparity + cfg.num_disparities
-    planes = cost_planes(left, right, cfg.pre_filter_cap)
-    C = cost_volume(*planes, cfg.num_disparities, cfg.min_disparity, cfg.block_size)
-    disp, valid, best, minS = sgm_wta(
-        C, cfg.p1, cfg.p2, cfg.num_directions, cfg.uniqueness_ratio, cfg.min_disparity
-    )
-    del C
-    if cfg.disp12_max_diff >= 0:
-        lr_check_maps(best, minS, disp, cfg.num_disparities, cfg.min_disparity,
-                      cfg.disp12_max_diff, out=valid)  # valid &= keep, in place
-    # Pad the invalid left margin back to full width.
-    disp = torch.nn.functional.pad(disp, (x0, 0), value=float(cfg.min_disparity - 1))
-    valid = torch.nn.functional.pad(valid, (x0, 0), value=False)
-    if cfg.speckle_window_size > 0:
-        valid = _speckle(disp, valid, cfg)
-    return disp, valid
+    with span("sgbm"):
+        H, W = left.shape
+        if right.shape != (H, W) or right.device != left.device:
+            raise ValueError("left and right must share one (H, W) shape and device")
+        _validate(H, W, cfg)
+        x0 = cfg.min_disparity + cfg.num_disparities
+        with span("sgbm.cost"):
+            planes = cost_planes(left, right, cfg.pre_filter_cap)
+            C = cost_volume(*planes, cfg.num_disparities, cfg.min_disparity, cfg.block_size)
+        with span("sgbm.aggregate"):
+            disp, valid, best, minS = sgm_wta(
+                C, cfg.p1, cfg.p2, cfg.num_directions, cfg.uniqueness_ratio, cfg.min_disparity
+            )
+        del C
+        with span("sgbm.post"):
+            if cfg.disp12_max_diff >= 0:
+                lr_check_maps(best, minS, disp, cfg.num_disparities, cfg.min_disparity,
+                              cfg.disp12_max_diff, out=valid)  # valid &= keep, in place
+            # Pad the invalid left margin back to full width.
+            disp = torch.nn.functional.pad(disp, (x0, 0), value=float(cfg.min_disparity - 1))
+            valid = torch.nn.functional.pad(valid, (x0, 0), value=False)
+            if cfg.speckle_window_size > 0:
+                valid = _speckle(disp, valid, cfg)
+        return disp, valid
 
 
 def filter_speckles_host(disp: torch.Tensor, valid: torch.Tensor,

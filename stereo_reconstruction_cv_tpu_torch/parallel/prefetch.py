@@ -32,6 +32,7 @@ import torch
 from stereo_reconstruction_cv_tpu_torch import native
 from stereo_reconstruction_cv_tpu_torch.errors import DataError
 from stereo_reconstruction_cv_tpu_torch.parallel.mesh import Sharded, Sharding, block_ranges
+from stereo_reconstruction_cv_tpu_torch.utils.profiling import span
 
 
 def _read(path: str) -> bytes:
@@ -191,21 +192,27 @@ class PrefetchLoader:
             nxt = i + self.prefetch
             if nxt < len(batches):
                 submit(nxt)
-            cols, event = inflight.pop(i).result()
-            if isinstance(event, dict):  # a mesh: each device's event and blocks
-                for dev, ev in event.items():
-                    stream = torch.cuda.current_stream(dev)
-                    stream.wait_event(ev)
-                    for col in cols:
-                        for row in col.blocks:
-                            for t in row:
-                                if t.device == dev:
-                                    t.record_stream(stream)
-            elif event is not None:
-                stream = torch.cuda.current_stream(self.device)
-                stream.wait_event(event)
-                for t in cols:
-                    t.record_stream(stream)
+            with span("input.take"):
+                future = inflight.pop(i)
+                if future.done():
+                    cols, event = future.result()
+                else:
+                    with span("input.stall"):
+                        cols, event = future.result()
+                if isinstance(event, dict):  # a mesh: each device's event and blocks
+                    for dev, ev in event.items():
+                        stream = torch.cuda.current_stream(dev)
+                        stream.wait_event(ev)
+                        for col in cols:
+                            for row in col.blocks:
+                                for t in row:
+                                    if t.device == dev:
+                                        t.record_stream(stream)
+                elif event is not None:
+                    stream = torch.cuda.current_stream(self.device)
+                    stream.wait_event(event)
+                    for t in cols:
+                        t.record_stream(stream)
             yield cols
 
     def __len__(self):

@@ -29,6 +29,7 @@ from stereo_reconstruction_cv_tpu_torch.ops import geometry as G
 from stereo_reconstruction_cv_tpu_torch.parallel import mesh as M
 from stereo_reconstruction_cv_tpu_torch.parallel.prefetch import PrefetchLoader
 from stereo_reconstruction_cv_tpu_torch.parallel.sgm_sharded import sharded_sgbm_disparity
+from stereo_reconstruction_cv_tpu_torch.utils.profiling import span
 
 
 def dense_batch_step(left, right, Q, cfg: SGBMConfig, mesh: Optional[M.Mesh] = None):
@@ -44,8 +45,9 @@ def dense_batch_step(left, right, Q, cfg: SGBMConfig, mesh: Optional[M.Mesh] = N
         maps = [DP.sgbm_disparity(l, r, cfg) for l, r in zip(left, right)]
         disp = torch.stack([d for d, _ in maps])
         valid = torch.stack([v for _, v in maps])
-    Qt = torch.as_tensor(np.asarray(Q), dtype=torch.float32, device=disp.device)
-    pts = torch.stack([G.reproject_image_to_3d(d, Qt) for d in disp])
+    with span("cloud.reproject"):
+        Qt = torch.as_tensor(np.asarray(Q), dtype=torch.float32, device=disp.device)
+        pts = torch.stack([G.reproject_image_to_3d(d, Qt) for d in disp])
     return disp, pts, valid
 
 
@@ -54,13 +56,14 @@ def cloud_points(disp: torch.Tensor, pts: torch.Tensor, valid: torch.Tensor):
     disp > 0 in row-major order, without waiting for the device: (points
     (H*W, 3) whose first `count` rows are the cloud, count (1,) int64), both
     on the device. The other rows are unspecified."""
-    mask = (valid & G.valid_point_mask(pts, disp)).reshape(-1)
-    n = mask.numel()
-    rank = torch.cumsum(mask, 0) - 1
-    slot = torch.where(mask, rank, torch.full_like(rank, n))  # the rest to a spare row
-    out = torch.empty((n + 1, 3), dtype=pts.dtype, device=pts.device)
-    out.index_copy_(0, slot, pts.reshape(-1, 3))
-    return out[:n], mask.sum().reshape(1)
+    with span("cloud.compact"):
+        mask = (valid & G.valid_point_mask(pts, disp)).reshape(-1)
+        n = mask.numel()
+        rank = torch.cumsum(mask, 0) - 1
+        slot = torch.where(mask, rank, torch.full_like(rank, n))  # the rest to a spare row
+        out = torch.empty((n + 1, 3), dtype=pts.dtype, device=pts.device)
+        out.index_copy_(0, slot, pts.reshape(-1, 3))
+        return out[:n], mask.sum().reshape(1)
 
 
 def stream_reconstruct(
@@ -104,14 +107,15 @@ def stream_reconstruct(
             batch = []
             for i in range(disp.shape[0]):
                 points, count = cloud_points(disp[i], pts[i], valid[i])
-                host_pts = torch.empty(points.shape, dtype=points.dtype, pin_memory=on_card)
-                host_n = torch.empty(count.shape, dtype=count.dtype, pin_memory=on_card)
-                host_pts.copy_(points, non_blocking=True)
-                host_n.copy_(count, non_blocking=True)
-                event = None
-                if on_card:
-                    event = torch.cuda.Event()
-                    event.record()
+                with span("cloud.copy"):
+                    host_pts = torch.empty(points.shape, dtype=points.dtype, pin_memory=on_card)
+                    host_n = torch.empty(count.shape, dtype=count.dtype, pin_memory=on_card)
+                    host_pts.copy_(points, non_blocking=True)
+                    host_n.copy_(count, non_blocking=True)
+                    event = None
+                    if on_card:
+                        event = torch.cuda.Event()
+                        event.record()
                 path = os.path.join(out_dir, f"cloud_{len(outputs):04d}.ply")
                 batch.append((path, host_pts, host_n, event))
                 outputs.append(path)

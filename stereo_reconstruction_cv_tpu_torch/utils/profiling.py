@@ -9,8 +9,13 @@ The port of ``stereo_reconstruction_cv_tpu/utils/profiling.py``:
     synchronises the stage's CUDA device at exit so that the time covers its
     device work;
   - ``trace(logdir)``: a torch.profiler trace of the body, written as a
-    Chrome trace (``logdir/trace.json``); ``annotate(name)`` names a region
-    in it.
+    Chrome trace (``logdir/trace.json``);
+  - ``span(name)``: the program's named range "srcv.<name>", one per call
+    at a layer boundary (README, "Tracing a run", lists them), recorded on
+    the profiler's own clock beside the device items it launches, so each
+    item and each idle gap of a trace can be put down to what the program
+    was doing. While no profiler records, it is one shared null context: a
+    span then costs one attribute check.
 """
 
 from __future__ import annotations
@@ -23,6 +28,10 @@ from collections import defaultdict
 from typing import Any, Dict, Iterator
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+SPAN_PREFIX = "srcv."
+_NO_SPAN = contextlib.nullcontext()
 
 
 class Metrics:
@@ -85,6 +94,9 @@ def trace(logdir: str) -> Iterator[torch.profiler.profile]:
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-def annotate(name: str):
-    """A named region inside a trace."""
-    return torch.profiler.record_function(name)
+def span(name: str):
+    """The range "srcv.<name>" in the running profiler's trace; while no
+    profiler records, the shared null context (no record_function is built)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(SPAN_PREFIX + name)

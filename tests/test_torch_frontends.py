@@ -238,10 +238,10 @@ def test_observed_stages_record_their_scalars():
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     with profiling.trace(str(tmp_path / "t")):
-        with profiling.annotate("block"):
+        with profiling.span("block"):
             torch.ones(64).sum()
     events = json.loads((tmp_path / "t" / "trace.json").read_text())["traceEvents"]
-    assert any(e.get("name") == "block" for e in events)
+    assert any(e.get("name") == "srcv.block" for e in events)
 
 
 def test_capture_stdout():
