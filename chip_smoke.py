@@ -19,7 +19,10 @@ Phases:
                and keep masks on speckled maps of both sizes; CUDA-event times,
                each path-sweep direction alone at 720p (its time against its
                path length tells latency from transfers), and config 2's
-               sweeps + fused sweep with each of sgm.py's FUSED_CANDIDATES last
+               sweeps + fused sweep with each of sgm.py's FUSED_CANDIDATES last;
+               the remap kernel on both cameras of a 1.2-degree raw rig at
+               720p and 4K, EQUAL to its plain version, its pair's time (graph
+               replay, maps beyond the L2 cache) against its byte bound
   4. 720p      config 2 as the reference runs it: sgbm_disparity, 128
                disparities, 8 paths, LR check, device speckle (the default
                "propagate"), and the same with the host speckle (equal masks);
@@ -155,6 +158,7 @@ when a phase fails or no CUDA device is present. Imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -195,6 +199,9 @@ KERNELS = {
                    "tools/micro_wta.py:32, :93"),
     "op_chain": ("stereo_reconstruction_cv_tpu_torch/csrc/op_chain.cu",
                  "tools/micro_i16.py:50"),
+    # Replaces no TPU kernel: the reference remaps with XLA gathers.
+    "remap": ("stereo_reconstruction_cv_tpu_torch/csrc/remap.cu",
+              "none (stereo_reconstruction_cv_tpu/ops/rectify.py remap_bilinear: XLA gathers)"),
 }
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense rates at 700 W):
 # HBM bytes/s, and float32 operations/s outside the tensor cores. The latter
@@ -233,6 +240,9 @@ OPS_PER = {
     # uniqueness test (3)
     "wta_volume": 8,
     "wta_packed": 8,
+    # per pixel: floor, fraction and 1 - fraction per axis (6), four weights,
+    # four products and three sums (11), rounding (1)
+    "remap": 18,
 }
 WTA_VARIANTS = "shipped,shipped2,nat,2nat,nat:8:128,8:128:dot,8:128:bfly,8:512:dot,8:512:bfly"
 SPECKLE_DIFF = 5.0  # max_diff of the synthetic speckle maps
@@ -848,7 +858,8 @@ def bench_phase(torch, dev, main_path, dense, speckle):
 
     others = tuple(k for k in KERNELS if k not in dense + speckle)
     expect = {1: (("cost_volume",), tuple(k for k in KERNELS if k != "cost_volume")),
-              2: (dense + speckle, others), 3: (dense + speckle, others),
+              2: (dense + speckle, others),
+              3: (dense + speckle + ("remap",), tuple(k for k in others if k != "remap")),
               4: ((), tuple(KERNELS)), 5: (dense, speckle + others)}
     buf = io.StringIO()
     t0 = time.perf_counter()
@@ -1117,7 +1128,7 @@ def train_phase(torch, dev, host, main_path, dense, speckle, pair4k):
                                              *TRAIN_FRAME, seed=SEED + 30 + s, device=dev)):
                 save_image(os.path.join(pf, name), img.cpu().numpy(), quality=95)
             pairs.append(pf)
-        with main_path("stereo pool build (2 rendered 4K raw pairs)", dense + speckle):
+        with main_path("stereo pool build (2 rendered 4K raw pairs)", dense + speckle + ("remap",)):
             sync()
             t0 = time.perf_counter()
             spool = XT.build_stereo_pool(pairs, cache_dir=td, device="cuda")
@@ -1422,6 +1433,7 @@ def main() -> int:
         from stereo_reconstruction_cv_tpu_torch.ops.cuda import cost as CK
         from stereo_reconstruction_cv_tpu_torch.ops.cuda import lr as LK
         from stereo_reconstruction_cv_tpu_torch.ops.cuda import op_chain as OC
+        from stereo_reconstruction_cv_tpu_torch.ops.cuda import remap as RK
         from stereo_reconstruction_cv_tpu_torch.ops.cuda import sgm as SK
         from stereo_reconstruction_cv_tpu_torch.ops.cuda import speckle as SPK
         from stereo_reconstruction_cv_tpu_torch.pipeline import stages
@@ -1589,6 +1601,39 @@ def main() -> int:
         log(f"[{label} {H}x{W}x{D} {nd}-dir] fused direction candidates, equal maps "
             f"(FUSED_DIR {SK.FUSED_DIR[0]},{SK.FUSED_DIR[1]}): " + json.dumps(out))
 
+    def check_remap(H, W):
+        """The remap kernel on both cameras of utils/synth's 1.2-degree raw
+        rig at (H, W) against the plain version (EQUAL), and the pair's times:
+        the kernel's by graph replay over enough copies of the maps to
+        overflow the 50 MB L2 cache (the chain reads each map once a pair,
+        after SGBM has flushed it), the plain version's by CUDA events.
+        Returns the kernels line's fields for a pair."""
+        K = K_4K.copy()
+        K[:2] *= W / 3840.0
+        Kt = torch.as_tensor(K)
+        res = RC.stereo_rectify(Kt, None, Kt, None, (W, H),
+                                torch.as_tensor(rotation_about(SCENE_AXIS, SCENE_DEG)),
+                                torch.tensor(SCENE_T, dtype=torch.float64), alpha=0.0)
+        maps = [RC.rectify_map(Kt, None, R, P, (W, H), device=dev)
+                for R, P in ((res.R1, res.P1), (res.R2, res.P2))]
+        frames = [torch.from_numpy(f).to(dev)
+                  for f in textured_pair(np.random.default_rng(SEED + H), H, W, 32)]
+        note("remap", max(max_err(torch, RK.remap_bilinear_cuda(f, m), RK.remap_bilinear_plain(f, m))
+                          for f, m in zip(frames, maps)))
+        pair_bytes = 2 * H * W * (8 + 1 + 1)  # map, a source byte, an output byte a pixel
+        copies = math.ceil(150e6 / pair_bytes)
+        sets = itertools.cycle([[m.clone() for m in maps] for _ in range(copies)])
+
+        def pair():
+            return [RK.remap_bilinear_cuda(f, m) for f, m in zip(frames, next(sets))]
+
+        t_k = graph_ms(pair, iters=copies * math.ceil(20 / copies))
+        t_p = cuda_ms(lambda: [RK.remap_bilinear_plain(f, m) for f, m in zip(frames, maps)], 3)
+        b = bound(pair_bytes, OPS_PER["remap"] * 2 * H * W)
+        log(f"[{W}x{H} pair] remap: equal; kernel {t_k:.4f} ms, plain {t_p:.3f} ms; bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}), share {b['bound_ms'] / t_k:.4f}")
+        return dict(ms=t_k, plain_ms=t_p, **b)
+
     @phase("3 kernels vs plain")
     def _():
         rng = np.random.default_rng(SEED)
@@ -1726,6 +1771,8 @@ def main() -> int:
             # kernels on config 2's own map (phase 4), nearly one component.
             check_speckle(label + " speckled", torch.from_numpy(disp_np).to(dev),
                           torch.from_numpy(valid_np).to(dev), (20, 100))
+        results["remap"].update(check_remap(720, 1280))
+        check_remap(2160, 3840)
 
     # The main paths (phases 4 and 5): each runs with every launch count set
     # to 0 just before it and read just after, so each shows its own
@@ -1739,11 +1786,12 @@ def main() -> int:
     def main_path(label, launched, not_launched=()):
         """Counts zeroed before the body and read after it: each kernel of
         `launched` must have run in it, none of `not_launched`."""
-        for mod in (CK, SK, LK, SPK, OC):
+        for mod in (CK, SK, LK, SPK, OC, RK):
             for k in mod.launches:
                 mod.launches[k] = 0
         yield
-        got = {**CK.launches, **SK.launches, **LK.launches, **SPK.launches, **OC.launches}
+        got = {**CK.launches, **SK.launches, **LK.launches, **SPK.launches, **OC.launches,
+               **RK.launches}
         log(f"launches on {label}: {json.dumps(got)}")
         for k in main_counts:
             main_counts[k] += got[k]
@@ -2011,7 +2059,7 @@ def main() -> int:
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         with tempfile.TemporaryDirectory() as td, \
-                main_path("4K pair -> PLY (host speckle)", dense, speckle):
+                main_path("4K pair -> PLY (host speckle)", dense + ("remap",), speckle):
             out = os.path.join(td, "cloud_4k.ply")
             walls = []
             for _ in range(4):
@@ -2045,7 +2093,7 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         walls3, total = [], 0.0
-        with main_path("4K config 3 device chain (device speckle)", dense + speckle):
+        with main_path("4K config 3 device chain (device speckle)", dense + speckle + ("remap",)):
             for _ in range(4):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -2363,7 +2411,7 @@ def main() -> int:
             Q = res.Q.to(device=dev, dtype=torch.float32)
             walls, out = [], None
             label = "anchor" if np.array_equal(np.asarray(K), K_4K) else "calibrated"
-            with main_path(f"4K config 3 device chain, {label} K", dense + speckle):
+            with main_path(f"4K config 3 device chain, {label} K", dense + speckle + ("remap",)):
                 for _ in range(3):
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()

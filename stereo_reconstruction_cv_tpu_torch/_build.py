@@ -206,9 +206,10 @@ def _declare_kernels(lib: ctypes.CDLL) -> None:
     lib.srcv_speckle_keep.argtypes = [P, P, P, P, I, I, LL, I, P]
     lib.srcv_wta.argtypes = [P] * 3 + [I] * 11 + [P] * 6
     lib.srcv_op_chain.argtypes = [P, P, I, I, I, I, P]
+    lib.srcv_remap_bilinear.argtypes = [P] * 3 + [I] * 6 + [P]
     for fn in (lib.srcv_cost_volume, lib.srcv_sgm_path_sweep, lib.srcv_sgm_sweep_wta,
                lib.srcv_sgm_sweep_sum, lib.srcv_lr_check, lib.srcv_speckle_labels,
-               lib.srcv_speckle_keep, lib.srcv_wta, lib.srcv_op_chain):
+               lib.srcv_speckle_keep, lib.srcv_wta, lib.srcv_op_chain, lib.srcv_remap_bilinear):
         fn.restype = I
     lib.srcv_error_string.argtypes = [I]
     lib.srcv_error_string.restype = ctypes.c_char_p

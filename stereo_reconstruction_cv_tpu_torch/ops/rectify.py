@@ -3,9 +3,10 @@
 Ports of ``stereo_reconstruction_cv_tpu/ops/rectify.py``: cv2.stereoRectify
 parity in closed form (run it in float64, as the reference does on the host),
 the inverse rectification map and the four-tap bilinear remap
-(cv2.remap INTER_LINEAR, BORDER_CONSTANT = 0). The remap is plain tensor code
-(gathers) on the device of the image; the reference's banded-matmul and packed
-one-gather paths were TPU gather workarounds and are not ported.
+(cv2.remap INTER_LINEAR, BORDER_CONSTANT = 0). The remap is one CUDA kernel
+launch on a CUDA image and plain tensor code (gathers) on the CPU
+(``ops/cuda/remap.py``); the reference's banded-matmul and packed one-gather
+paths were TPU gather workarounds and are not ported.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from stereo_reconstruction_cv_tpu_torch.ops import geometry as G
+from stereo_reconstruction_cv_tpu_torch.ops.cuda import remap as RK
 from stereo_reconstruction_cv_tpu_torch.utils.profiling import span
 
 
@@ -197,36 +199,14 @@ def rectify_map(K, dist, R, P, out_size: Tuple[int, int],
 
 def remap_bilinear(img: torch.Tensor, src_map: torch.Tensor) -> torch.Tensor:
     """Four-tap bilinear resample, out-of-range taps read 0.
-    img (H, W) or (H, W, C); src_map (Ho, Wo, 2) of source (x, y)."""
+    img (H, W) or (H, W, C); src_map (Ho, Wo, 2) of source (x, y).
+
+    A CPU image takes the plain version; a CUDA image the kernel, one launch,
+    which raises on a dtype or layout it does not take (ops/cuda/remap.py)."""
     with span("rectify"):
-        H, W = img.shape[:2]
-        x = src_map[..., 0]
-        y = src_map[..., 1]
-        x0 = torch.floor(x)
-        y0 = torch.floor(y)
-        fx = x - x0
-        fy = y - y0
-        x0i = x0.to(torch.int64)
-        y0i = y0.to(torch.int64)
-
-        def tap(xi, yi):
-            inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
-            val = img[torch.clamp(yi, 0, H - 1), torch.clamp(xi, 0, W - 1)].to(torch.float32)
-            if img.dim() == 3:
-                inb = inb[..., None]
-            return torch.where(inb, val, torch.zeros_like(val))
-
-        w00 = (1 - fx) * (1 - fy)
-        w10 = fx * (1 - fy)
-        w01 = (1 - fx) * fy
-        w11 = fx * fy
-        if img.dim() == 3:
-            w00, w10, w01, w11 = (w[..., None] for w in (w00, w10, w01, w11))
-        acc = (tap(x0i, y0i) * w00 + tap(x0i + 1, y0i) * w10
-               + tap(x0i, y0i + 1) * w01 + tap(x0i + 1, y0i + 1) * w11)
-        if not img.dtype.is_floating_point:
-            return torch.round(acc).to(img.dtype)
-        return acc.to(img.dtype)
+        if img.device.type == "cpu":
+            return RK.remap_bilinear_plain(img, src_map)
+        return RK.remap_bilinear_cuda(img, src_map)
 
 
 def rectify_remap(img: torch.Tensor, K, dist, R, P,

@@ -11,7 +11,9 @@ of the cost kernel's tile, single pixels, rows and columns, long diagonals,
 unaligned volumes), with stress maps for the keep-mask kernels (every
 scatter on one address, rows past 48 KB of shared memory, one component
 over a 4K frame, a component per pixel) and the torch ops of rectification
-and reprojection held to the same calls on the CPU; chip_smoke.py checks
+and reprojection held to the same calls on the CPU, the remap kernel to
+its plain version on rig maps and on maps of every edge case (off-image
+taps, integer and half-pixel coordinates); chip_smoke.py checks
 the full-size shapes of the main path. The sparse path (torch ops, no
 kernel of its own) is held to the port's CPU run: SIFT keypoints and
 descriptors, the distance matrix, the robust fits given the same samples,
@@ -52,11 +54,13 @@ from stereo_reconstruction_cv_tpu_torch.ops import robust as RB
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import cost as CK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import lr as LK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import op_chain as OC
+from stereo_reconstruction_cv_tpu_torch.ops.cuda import remap as RK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import sgm as SK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import speckle as SPK
 from stereo_reconstruction_cv_tpu_torch.pipeline import stages
 from stereo_reconstruction_cv_tpu_torch.tools import micro_i16
 from stereo_reconstruction_cv_tpu_torch.utils import synth
+from remap_edge import edge_map
 
 pytestmark = pytest.mark.gpu
 
@@ -365,6 +369,58 @@ def test_rectify_and_reproject_on_the_card_match_the_cpu(dev, rig, H, W):
     assert torch.equal(torch.isfinite(got), fin)
     rel = (got[fin] - ref[fin]).abs() / ref[fin].abs().clamp_min(1e-30)
     assert float(rel.max()) <= F32_RTOL
+
+
+@pytest.mark.parametrize("H,W", [(720, 1280), (2160, 3840), (181, 321)])
+def test_remap_kernel_equals_plain_on_rotated_rig_maps(dev, H, W):
+    """remap_bilinear on the card is one kernel launch a call, torch.equal
+    to the plain version on the card, for both cameras of a rotated,
+    distorted rig (181 x 321: rows that are no multiple of 4 wide)."""
+    K, dist, res = _rig("rotated", W, H)
+    img = torch.from_numpy(np.random.default_rng(W).integers(0, 256, (H, W), dtype=np.uint8)).to(dev)
+    for R, P in ((res.R1, res.P1), (res.R2, res.P2)):
+        m = RC.rectify_map(K, dist, R, P, (W, H), device=dev)
+        before = RK.launches["remap"]
+        got = RC.remap_bilinear(img, m)
+        assert RK.launches["remap"] == before + 1
+        want = RK.remap_bilinear_plain(img, m)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.uint8 and got.shape == (H, W)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype,channels,Wo", [
+    (torch.uint8, 3, 44), (torch.uint8, 3, 45), (torch.float32, 3, 44), (torch.float32, 3, 45),
+    (torch.uint8, 1, 44), (torch.float32, 1, 45),
+])
+def test_remap_kernel_equals_plain_on_edge_maps(dev, dtype, channels, Wo):
+    """Off-image taps on all four sides, integer and half-pixel coordinates
+    (rounding ties): the kernel's bits are the plain version's, through its
+    vector path (Wo % 4 == 0) and its pixel-at-a-time path."""
+    H, W = 23, 31
+    rng = np.random.default_rng(channels + Wo)
+    shape = (H, W) if channels == 1 else (H, W, channels)
+    img = (rng.integers(0, 256, shape).astype(np.uint8) if dtype == torch.uint8
+           else rng.uniform(-50, 300, shape).astype(np.float32))
+    img = torch.from_numpy(img).to(dev)
+    m = torch.from_numpy(edge_map(H, W, 37, Wo, Wo)).to(dev)
+    got = RK.remap_bilinear_cuda(img, m)
+    want = RK.remap_bilinear_plain(img, m)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (37, Wo, *shape[2:])
+    if dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    assert torch.equal(got, want)
+
+
+def test_remap_kernel_raises_on_what_it_does_not_take(dev):
+    m = torch.zeros((8, 8, 2), device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        RC.remap_bilinear(torch.zeros((8, 8), dtype=torch.int16, device=dev), m)
+    with pytest.raises(ValueError, match="contiguous"):
+        RC.remap_bilinear(torch.zeros((8, 16), dtype=torch.uint8, device=dev)[:, ::2], m)
+    with pytest.raises(ValueError, match="map must be"):
+        RC.remap_bilinear(torch.zeros((8, 8), dtype=torch.uint8, device=dev), m.double())
 
 
 @pytest.mark.parametrize("nd", [5, 8])

@@ -16,6 +16,7 @@ from stereo_reconstruction_cv_tpu.ops import geometry as RG
 from stereo_reconstruction_cv_tpu.ops import rectify as RR
 from stereo_reconstruction_cv_tpu_torch.ops import geometry as G
 from stereo_reconstruction_cv_tpu_torch.ops import rectify as RC
+from remap_edge import edge_map
 
 K_4K = np.array([[2253.71, 0.0, 1929.69], [0.0, 2244.72, 1057.63], [0.0, 0.0, 1.0]])
 DIST = np.array([0.2090, -0.5576, -7.2e-6, 5.2e-4, 0.3812])
@@ -113,3 +114,53 @@ def test_reproject_and_mask_match_reference():
     np.testing.assert_allclose(got.numpy()[finite], ref[finite], rtol=1e-5)
     mask_ref = np.asarray(RG.valid_point_mask(jnp.asarray(ref), jnp.asarray(disp)))
     np.testing.assert_array_equal(G.valid_point_mask(got, torch.from_numpy(disp)).numpy(), mask_ref)
+
+
+def _remap_numpy(img, m):
+    """The remap's formula in float32 numpy, one rounding an operation:
+    bounds tested in float, so no coordinate is cast out of range."""
+    H, W = img.shape[:2]
+    x0, y0 = np.floor(m[..., 0]), np.floor(m[..., 1])
+    fx, fy = m[..., 0] - x0, m[..., 1] - y0
+    one = np.float32(1)
+    acc = None
+    for dx, dy, w in ((0, 0, (one - fx) * (one - fy)), (1, 0, fx * (one - fy)),
+                      (0, 1, (one - fx) * fy), (1, 1, fx * fy)):
+        xi, yi = x0.astype(np.float64) + dx, y0.astype(np.float64) + dy
+        inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+        v = img[np.clip(yi, 0, H - 1).astype(np.int64), np.clip(xi, 0, W - 1).astype(np.int64)]
+        if img.ndim == 3:
+            inb, w = inb[..., None], w[..., None]
+        term = np.where(inb, v.astype(np.float32), np.float32(0)) * w
+        acc = term if acc is None else acc + term
+    return np.rint(acc).astype(img.dtype) if img.dtype == np.uint8 else acc
+
+
+@pytest.mark.parametrize("dtype,channels,Wo", [
+    (np.uint8, 1, 45), (np.uint8, 3, 44), (np.float32, 1, 44), (np.float32, 3, 45),
+])
+def test_plain_remap_equals_numpy_on_edge_maps_and_launches_nothing(monkeypatch, dtype,
+                                                                     channels, Wo):
+    """remap_bilinear on a CPU image is the plain version, bit for bit the
+    float32 formula, and never loads the kernel library."""
+    from stereo_reconstruction_cv_tpu_torch import _build
+    from stereo_reconstruction_cv_tpu_torch.ops.cuda import remap as RK
+
+    def no_library():
+        raise AssertionError("a CPU remap loaded the kernel library")
+
+    monkeypatch.setattr(_build, "kernels_library", no_library)
+    H, W = 23, 31
+    rng = np.random.default_rng(channels + Wo)
+    shape = (H, W) if channels == 1 else (H, W, channels)
+    img = (rng.integers(0, 256, shape).astype(np.uint8) if dtype == np.uint8
+           else rng.uniform(-50, 300, shape).astype(np.float32))
+    m = edge_map(H, W, 37, Wo, Wo)
+    before = dict(RK.launches)
+    got = RC.remap_bilinear(torch.from_numpy(img), torch.from_numpy(m)).numpy()
+    assert RK.launches == before == {"remap": before["remap"]}
+    want = _remap_numpy(img, m)
+    assert got.dtype == img.dtype and got.shape == (37, Wo, *shape[2:])
+    if dtype == np.float32:
+        got, want = got.view(np.uint32), want.view(np.uint32)
+    np.testing.assert_array_equal(got, want)
