@@ -60,6 +60,7 @@ from stereo_reconstruction_cv_tpu_torch.parallel.mesh import (
     from_prev,
     place,
 )
+from stereo_reconstruction_cv_tpu_torch.utils.profiling import span
 
 # The direction fused with WTA in exact mode: a horizontal one, row-local.
 # S is a sum of integers, so the maps do not depend on which runs last.
@@ -83,17 +84,15 @@ def _on_mesh(mesh: Mesh, x) -> Sharded:
 
 def _by_frame(mesh: Mesh, fn: Callable, *xs: Sharded):
     """fn(*[the ns row blocks of one frame] per input) -> tuple of per-shard
-    lists of maps, for every frame; reassembled into Sharded outputs."""
+    lists of maps, for every frame; reassembled into Sharded outputs. Frame k
+    of every data row goes out before frame k + 1 of any, so each row's
+    devices get work from the first frame on."""
     nd, ns = mesh.shape["data"], mesh.shape["space"]
-    outs = None
-    for i in range(nd):
-        b = xs[0].blocks[i][0].shape[0]
-        per = [fn(*[[x.blocks[i][j][k] for j in range(ns)] for x in xs]) for k in range(b)]
-        if outs is None:
-            outs = [[[None] * ns for _ in range(nd)] for _ in per[0]]
-        for o, out in enumerate(outs):
-            for j in range(ns):
-                out[i][j] = torch.stack([p[o][j] for p in per])
+    b = xs[0].blocks[0][0].shape[0]
+    per = [[fn(*[[x.blocks[i][j][k] for j in range(ns)] for x in xs]) for i in range(nd)]
+           for k in range(b)]
+    outs = [[[torch.stack([per[k][i][o][j] for k in range(b)]) for j in range(ns)]
+             for i in range(nd)] for o in range(len(per[0][0]))]
     sharding = batch_row_sharding(mesh)
     return tuple(Sharded(sharding, out, xs[0].shape) for out in outs)
 
@@ -103,9 +102,10 @@ def _extend(blocks: Sequence[torch.Tensor], n: int):
     blocks, rows added on top of each)."""
     if n == 0 or len(blocks) == 1:
         return list(blocks), [0] * len(blocks)
-    tops, bots = from_prev(blocks, n), from_next(blocks, n)
-    ext = [torch.cat([t for t in (top, blk, bot) if t is not None])
-           for top, blk, bot in zip(tops, blocks, bots)]
+    with span("mesh.exchange"):
+        tops, bots = from_prev(blocks, n), from_next(blocks, n)
+        ext = [torch.cat([t for t in (top, blk, bot) if t is not None])
+               for top, blk, bot in zip(tops, blocks, bots)]
     return ext, [0 if top is None else n for top in tops]
 
 
@@ -227,44 +227,122 @@ def _roots(a: np.ndarray, b: np.ndarray):
         parent = new
 
 
-def _speckle_frame(ds: List[torch.Tensor], vs: List[torch.Tensor], max_size: int,
-                   max_diff: float) -> List[torch.Tensor]:
-    """One frame's row blocks -> per-shard keep masks, equal to the
-    single-device filter's rows."""
-    ns = len(ds)
-    labels = [_local_labels(d, v, max_diff) for d, v in zip(ds, vs)]
-    n = labels[0].numel() + 1  # labels of one shard, its sink included
-    sizes = [torch.bincount(lab.reshape(-1).to(torch.int64), minlength=n) for lab in labels]
+def _piece_sizes(lab: torch.Tensor, n: int) -> torch.Tensor:
+    """(n,) int64: how many pixels of a label map (rows, w) carry each label,
+    with no host sync. Each row is cut into runs of one label, and a run's
+    length is added once, at its last pixel, into its label's count: a
+    component's pixels would otherwise all add into one count, one after the
+    other. The other pixels add nothing, each into a spare count of its own."""
+    h, w = lab.shape
+    dev = lab.device
+    last = torch.ones((h, w), dtype=torch.bool, device=dev)
+    last[:, :-1] = lab[:, :-1] != lab[:, 1:]
+    x = torch.arange(w, device=dev).expand(h, w)
+    before = torch.full((h, w), -1, dtype=torch.int64, device=dev)
+    before[:, 1:] = torch.where(last[:, :-1], x[:, :-1], -1)
+    run = x - torch.cummax(before, 1).values  # the run's length at its last pixel
+    spare = n + torch.arange(h * w, device=dev).view(h, w)
+    idx = torch.where(last, lab.long(), spare).reshape(-1)
+    counts = torch.zeros(n + h * w, dtype=torch.int64, device=dev)
+    return counts.index_add_(0, idx, torch.where(last, run, 0).reshape(-1))[:n]
+
+
+def _to_host(x: torch.Tensor) -> np.ndarray:
+    """The join's one copy to the host, which waits for the batch's SGBM."""
+    return x.cpu().numpy()
+
+
+def _boundary_records(top, below, max_diff: float, dev) -> torch.Tensor:
+    """(5, b, W) int64 on `dev`: for each column of the boundary between two
+    shards of one data row, in each of its b frames, the pieces on either
+    side (numbered as in _speckle_batch), their sizes, and whether they are
+    joined there: both valid and |d - d'| <= max_diff in f32, as within a
+    shard. `top` and `below` are the shards' (maps, valid, labels as indices
+    into sizes, sizes, first piece number)."""
+    d, v, lab, sz, first = top
+    d2, v2, lab2, sz2, first2 = below
+    here = d.device
+    la = lab[:, -1]
+    sb = sz2[lab2[:, 0]].to(here)  # read on the shard below's device
+    lb = lab2[:, 0].to(here)
+    joined = (((d[:, -1].to(torch.float32) - d2[:, 0].to(here, torch.float32)).abs() <= max_diff)
+              & v[:, -1] & v2[:, 0].to(here))
+    # a run of joined columns between the same two pieces is one edge
+    repeat = torch.zeros_like(joined)
+    repeat[:, 1:] = joined[:, :-1] & (la[:, 1:] == la[:, :-1]) & (lb[:, 1:] == lb[:, :-1])
+    rec = torch.stack([la + first, lb + first2, sz[la], sb, (joined & ~repeat).long()])
+    return rec.to(dev)
+
+
+def _join_sizes(rec: np.ndarray):
+    """Host records (..., 5, b, W) -> (pieces that meet another across a
+    boundary, sorted; the summed size of the component each belongs to)."""
+    r = np.moveaxis(rec, -3, 0).reshape(5, -1)
+    joined = r[4] != 0
+    a, b = r[0][joined], r[1][joined]
+    if not a.size:
+        return a, a
+    nodes, root = _roots(a, b)
+    _, at = np.unique(np.concatenate([a, b]), return_index=True)
+    total = np.zeros(nodes.size, np.int64)
+    np.add.at(total, root, np.concatenate([r[2][joined], r[3][joined]])[at])
+    return nodes, total[root]
+
+
+def _put_sizes(shards, nodes: np.ndarray, total: np.ndarray, span_n: int) -> None:
+    """Write each joined piece's component size into its shard's sizes, with
+    one non-blocking copy from pinned memory to each device. A shard owns
+    the piece numbers [first, first + span_n)."""
+    pieces: dict = {}  # device -> [(sizes tensor, indices, totals)]
+    for *_, sz, first in shards:
+        lo, hi = np.searchsorted(nodes, [first, first + span_n])
+        if hi > lo:
+            pieces.setdefault(sz.device, []).append((sz, nodes[lo:hi] - first, total[lo:hi]))
+    for dev, items in pieces.items():
+        host = torch.from_numpy(np.concatenate([x for _, idx, tot in items for x in (idx, tot)]))
+        if dev.type == "cuda":
+            host = host.pin_memory()
+        flat = host.to(dev, non_blocking=True)
+        start = 0
+        for sz, idx, _ in items:
+            m = idx.size
+            sz.index_copy_(0, flat[start:start + m], flat[start + m:start + 2 * m])
+            start += 2 * m
+
+
+def _speckle_batch(mesh: Mesh, disp: Sharded, valid: Sharded, max_size: int, max_diff: float,
+                   x0: int = 0) -> Sharded:
+    """Keep masks of a batch, Sharded like `valid`: each frame's equal to the
+    single-device filter on its columns x >= x0; the columns left of x0 come
+    back not kept. Each shard labels its b frames and counts the pieces of
+    all of them at once on its device; the records of every boundary are
+    queued, brought to the host in one copy (one wait a batch) and joined by
+    one union-find over the batch; the joined pieces' sizes go back in one
+    copy a device. Piece `label` of frame k in shard (i, j) is numbered
+    ((i * ns + j) * b + k) * n + label."""
+    nd, ns = mesh.shape["data"], mesh.shape["space"]
+    b = valid.blocks[0][0].shape[0]
+    n = max(blk.shape[1] * (blk.shape[2] - x0) for row in valid.blocks for blk in row) + 1
+    shards = []  # per data row, per shard: (maps, valid, labels, sizes, first piece number)
+    for i in range(nd):
+        row = []
+        for j in range(ns):
+            d, v = disp.blocks[i][j][:, :, x0:], valid.blocks[i][j][:, :, x0:]
+            lab = torch.stack([_local_labels(d[k], v[k], max_diff) for k in range(b)])
+            lab = lab.long() + n * torch.arange(b, device=lab.device)[:, None, None]
+            sz = _piece_sizes(lab.view(-1, lab.shape[2]), b * n)
+            row.append((d, v, lab, sz, (i * ns + j) * b * n))
+        shards.append(row)
     if ns > 1:
-        # Pieces meet across boundary j | j + 1 where the rows on either side
-        # are joined: both valid and |d - d'| <= max_diff in f32, as within a
-        # shard. A piece is (shard, local label), numbered j * n + label.
-        ea, eb, nodes_size = [], [], {}
-        for j in range(ns - 1):
-            dev = ds[j].device
-            d_lo = ds[j + 1][0].to(dev, torch.float32)
-            joined = (((ds[j][-1].to(torch.float32) - d_lo).abs() <= max_diff)
-                      & vs[j][-1] & vs[j + 1][0].to(dev))
-            la, lb = labels[j][-1], labels[j + 1][0].to(dev)
-            sa, sb = sizes[j][la.long()], sizes[j + 1][lb.long()].to(dev)
-            rec = torch.stack([la.long() + j * n, lb.long() + (j + 1) * n, sa, sb])
-            rec = rec[:, joined].cpu().numpy()
-            ea.append(rec[0])
-            eb.append(rec[1])
-            nodes_size.update(zip(rec[0].tolist(), rec[2].tolist()))
-            nodes_size.update(zip(rec[1].tolist(), rec[3].tolist()))
-        a, b = np.concatenate(ea), np.concatenate(eb)
-        if a.size:
-            nodes, root = _roots(a, b)
-            total = np.zeros(nodes.size, np.int64)
-            np.add.at(total, root, [nodes_size[g] for g in nodes.tolist()])
-            total = total[root]
-            for j in range(ns):
-                mine = (nodes >= j * n) & (nodes < (j + 1) * n)
-                if mine.any():
-                    idx = torch.from_numpy(nodes[mine] - j * n).to(sizes[j].device)
-                    sizes[j][idx] = torch.from_numpy(total[mine]).to(sizes[j].device)
-    return [v & (sz[lab.long()] > max_size) for v, sz, lab in zip(vs, sizes, labels)]
+        dev = mesh.devices[0][0]
+        recs = torch.stack([_boundary_records(row[j], row[j + 1], max_diff, dev)
+                            for row in shards for j in range(ns - 1)])
+        with span("mesh.speckle.join"):
+            nodes, total = _join_sizes(_to_host(recs))
+            _put_sizes([s for row in shards for s in row], nodes, total, b * n)
+    blocks = [[torch.nn.functional.pad(v & (sz[lab] > max_size), (x0, 0), value=False)
+               for _, v, lab, sz, _ in row] for row in shards]
+    return Sharded(batch_row_sharding(mesh), blocks, valid.shape)
 
 
 def sharded_speckle_filter(mesh: Mesh, disp, valid, max_speckle_size: int = 100,
@@ -275,9 +353,8 @@ def sharded_speckle_filter(mesh: Mesh, disp, valid, max_speckle_size: int = 100,
     pixels, over the whole frame (cv2.filterSpeckles)."""
     if max_speckle_size < 0:
         raise ValueError(f"max_speckle_size={max_speckle_size} must be >= 0")
-    Dm, Vm = _on_mesh(mesh, disp), _on_mesh(mesh, valid)
-    return _by_frame(mesh, lambda ds, vs: (_speckle_frame(ds, vs, max_speckle_size, max_diff),),
-                     Dm, Vm)[0]
+    return _speckle_batch(mesh, _on_mesh(mesh, disp), _on_mesh(mesh, valid), max_speckle_size,
+                          max_diff)
 
 
 def _sharded_speckle_with_margin(mesh: Mesh, disp: Sharded, valid: Sharded,
@@ -285,11 +362,5 @@ def _sharded_speckle_with_margin(mesh: Mesh, disp: Sharded, valid: Sharded,
     """The sharded speckle filter on the columns right of the margin x <
     min_disp + num_disp (invalid by construction), as ops.disparity._speckle
     slices them; the margin comes back not kept."""
-    x0 = cfg.min_disparity + cfg.num_disparities
-
-    def frame(ds, vs):
-        keep = _speckle_frame([d[:, x0:] for d in ds], [v[:, x0:] for v in vs],
-                              cfg.speckle_window_size, float(cfg.speckle_range))
-        return ([torch.nn.functional.pad(k, (x0, 0), value=False) for k in keep],)
-
-    return _by_frame(mesh, frame, disp, valid)[0]
+    return _speckle_batch(mesh, disp, valid, cfg.speckle_window_size, float(cfg.speckle_range),
+                          cfg.min_disparity + cfg.num_disparities)

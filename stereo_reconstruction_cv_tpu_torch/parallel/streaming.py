@@ -10,8 +10,10 @@ the host while the device computes the next.
 With ``mesh=`` (``parallel.mesh.Mesh``) the loader places each batch on the
 mesh (pairs over 'data', rows over 'space'), SGBM runs row-sharded
 (``parallel.sgm_sharded.sharded_sgbm_disparity``, halo warm-start, as the
-reference's step calls it) and each pair's maps are gathered onto the mesh's
-first device before its reprojection and cloud, in order.
+reference's step calls it) and each pair's maps are gathered onto one device
+of its own data row, the pairs of a row taking the row's devices in turn,
+where its reprojection, cloud and copy to the host run. The clouds keep the
+input's order.
 """
 
 from __future__ import annotations
@@ -37,10 +39,10 @@ def dense_batch_step(left, right, Q, cfg: SGBMConfig, mesh: Optional[M.Mesh] = N
     valid (B, H, W)) on their device. The port's sgbm_disparity takes one
     frame, so the batch runs one pair after the other. With `mesh`, the
     pairs (tensors, or Sharded by batch_row_sharding) run through
-    sharded_sgbm_disparity and the maps are gathered onto the mesh's first
-    device, where the points are computed."""
+    sharded_sgbm_disparity and each comes back on a device of its own data
+    row (mesh_points): three lists of B tensors, in the batch's order."""
     if mesh is not None:
-        disp, valid = (M.gather(x) for x in sharded_sgbm_disparity(mesh, left, right, cfg))
+        return mesh_points(*sharded_sgbm_disparity(mesh, left, right, cfg), Q, mesh)
     else:
         maps = [DP.sgbm_disparity(l, r, cfg) for l, r in zip(left, right)]
         disp = torch.stack([d for d, _ in maps])
@@ -49,6 +51,35 @@ def dense_batch_step(left, right, Q, cfg: SGBMConfig, mesh: Optional[M.Mesh] = N
         Qt = torch.as_tensor(np.asarray(Q), dtype=torch.float32, device=disp.device)
         pts = torch.stack([G.reproject_image_to_3d(d, Qt) for d in disp])
     return disp, pts, valid
+
+
+def gather_row(disp: M.Sharded, valid: M.Sharded, i: int):
+    """Data row i's pairs as whole maps: (disparities, valid masks), pair k
+    on the row's device k % n_space."""
+    row = disp.mesh.devices[i]
+    with span("mesh.gather"):
+        out = [[torch.cat([blk[k].to(row[k % len(row)]) for blk in x.blocks[i]])
+                for k in range(x.blocks[i][0].shape[0])] for x in (disp, valid)]
+    return out[0], out[1]
+
+
+def mesh_points(disp: M.Sharded, valid: M.Sharded, Q, mesh: M.Mesh):
+    """Sharded maps -> (disparities, points, valid masks): lists in the
+    batch's order, each pair's whole maps and points on a device of its own
+    data row (gather_row). Q goes to each device of the mesh once, from
+    pinned memory by a non-blocking copy, so the host does not wait."""
+    host = torch.as_tensor(np.asarray(Q), dtype=torch.float32)
+    if mesh.devices[0][0].type == "cuda":
+        host = host.pin_memory()
+    Qs = {d: host.to(d, non_blocking=True) for row in mesh.devices for d in row}
+    disps, pts, valids = [], [], []
+    for i in range(mesh.shape["data"]):
+        ds, vs = gather_row(disp, valid, i)
+        with span("cloud.reproject"):
+            pts += [G.reproject_image_to_3d(d, Qs[d.device]) for d in ds]
+        disps += ds
+        valids += vs
+    return disps, pts, valids
 
 
 def cloud_points(disp: torch.Tensor, pts: torch.Tensor, valid: torch.Tensor):
@@ -85,8 +116,8 @@ def stream_reconstruct(
     them. On the device the points go to pinned host buffers through an
     async copy and an event; a batch's clouds are written once the next
     batch's compute is queued. With `mesh`, batches go onto the mesh
-    (dense_batch_step) and `device` is not used: the clouds come from the
-    mesh's first device."""
+    (dense_batch_step) and `device` is not used: each pair's cloud is made
+    and copied on a device of its own data row."""
     os.makedirs(out_dir, exist_ok=True)
     dev = torch.device(device) if mesh is None else mesh.devices[0][0]
     on_card = dev.type == "cuda"
@@ -105,7 +136,7 @@ def stream_reconstruct(
         for left, right in loader:
             disp, pts, valid = dense_batch_step(left, right, Q, cfg, mesh)
             batch = []
-            for i in range(disp.shape[0]):
+            for i in range(len(disp)):
                 points, count = cloud_points(disp[i], pts[i], valid[i])
                 with span("cloud.copy"):
                     host_pts = torch.empty(points.shape, dtype=points.dtype, pin_memory=on_card)
@@ -115,7 +146,7 @@ def stream_reconstruct(
                     event = None
                     if on_card:
                         event = torch.cuda.Event()
-                        event.record()
+                        event.record(torch.cuda.current_stream(points.device))
                 path = os.path.join(out_dir, f"cloud_{len(outputs):04d}.ply")
                 batch.append((path, host_pts, host_n, event))
                 outputs.append(path)

@@ -1419,3 +1419,65 @@ def test_sharded_speckle_on_the_card_equals_single_device(dev, max_size):
     keep = M.gather(SS.sharded_speckle_filter(_cuda_mesh(2, 4), d, v, max_size, 32.0), dev)
     for k in range(B):
         assert torch.equal(keep[k], SPK.speckle_filter(d[k], v[k], max_size, 32.0))
+
+
+def test_mesh_step_on_four_cards_waits_once_and_keeps_clouds_on_their_rows(dev, monkeypatch):
+    """A 2x2 mesh over four cards: a batch step after the first makes no host
+    sync under CUDA's sync debug mode "error" but the batch's one join copy,
+    and each pair's maps, points and cloud stay on its own data row's cards,
+    the row's pairs taking its cards in turn; its maps equal the pair's
+    single-device SGBM on its halo-extended shards."""
+    from stereo_reconstruction_cv_tpu_torch.parallel import mesh as M
+    from stereo_reconstruction_cv_tpu_torch.parallel import sgm_sharded as SS
+    from stereo_reconstruction_cv_tpu_torch.parallel import streaming as ST
+    from stereo_reconstruction_cv_tpu_torch.tools.probe_sweep import textured_pair
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    mesh = M.make_mesh(2, 2, devices=[torch.device("cuda", i) for i in range(4)])
+    rng = np.random.default_rng(21)
+    pairs = [textured_pair(rng, 96, 160, 9) for _ in range(4)]
+    L, R = (torch.from_numpy(np.stack([p[s] for p in pairs])) for s in (0, 1))
+    cfg = DP.SGBMConfig(num_disparities=32, num_directions=5, speckle_window_size=20)
+    Q = np.array([[1, 0, 0, -80.0], [0, 1, 0, -48.0], [0, 0, 0, 100.0], [0, 0, 1 / 0.14, 0]])
+    sharding = M.batch_row_sharding(mesh)
+    Ls, Rs = M.place(L, sharding), M.place(R, sharding)
+    ST.dense_batch_step(Ls, Rs, Q, cfg, mesh)  # warm: first-use set-up may sync
+    for i in range(4):
+        torch.cuda.synchronize(i)
+    copies = []
+    to_host = SS._to_host
+
+    def one_copy(x):
+        copies.append(x.shape)
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return to_host(x)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(SS, "_to_host", one_copy)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        disp, pts, valid = ST.dense_batch_step(Ls, Rs, Q, cfg, mesh)
+        clouds = [ST.cloud_points(d, p, v) for d, p, v in zip(disp, pts, valid)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(copies) == 1
+    for b in range(4):
+        want = mesh.devices[b // 2][b % 2]
+        assert {disp[b].device, pts[b].device, valid[b].device} == {want}, b
+        assert {t.device for t in clouds[b]} == {want}, b
+    core = cfg.with_(speckle_window_size=0)
+    x0 = cfg.min_disparity + cfg.num_disparities
+    for b in range(4):
+        ds, vs = [], []
+        for j in range(2):
+            lo, hi = max(0, j * 48 - 32), min(96, (j + 1) * 48 + 32)
+            d1, v1 = DP.sgbm_disparity(L[b, lo:hi].to(dev), R[b, lo:hi].to(dev), core)
+            ds.append(d1[j * 48 - lo:j * 48 - lo + 48])
+            vs.append(v1[j * 48 - lo:j * 48 - lo + 48])
+        d1, v1 = torch.cat(ds), torch.cat(vs)
+        keep = SPK.speckle_filter(d1[:, x0:], v1[:, x0:], 20, 32.0)
+        assert torch.equal(disp[b].to(dev), d1), b
+        assert torch.equal(valid[b].to(dev), torch.nn.functional.pad(keep, (x0, 0), value=False)), b

@@ -377,3 +377,92 @@ def test_stream_reconstruct_over_a_mesh_writes_the_same_clouds(tmp_path):
     rows = streaming.stream_reconstruct(pairs[:2], Q, cfg, str(tmp_path / "rows"), batch_size=1,
                                         mesh=port_mesh(1, 2))
     assert len(rows) == 2 and all(os.path.getsize(p) > 100 for p in rows)
+
+
+# ---------------------------------------------------------------------------
+# The 2x2 deployment (the benchmark's backlog_mesh4 cell) at a small size
+# ---------------------------------------------------------------------------
+
+def mesh_params(speckle=100):
+    """main.ipynb cell 10's parameters at 16 disparities (the benchmark's
+    configuration cut for the CPU)."""
+    return {"min_disparity": 0, "num_disparities": 16, "block_size": 11, "p1": 2904,
+            "p2": 11616, "disp12_max_diff": 1, "pre_filter_cap": 63, "uniqueness_ratio": 10,
+            "speckle_window_size": speckle, "speckle_range": 32, "num_directions": 5,
+            "speckle_backend": "propagate"}
+
+
+@pytest.mark.parametrize("shape,halo", [((2, 2), 12), ((1, 4), 16), ((2, 2), 32)])
+def test_halo_mode_equals_the_plain_mesh_reference(shape, halo):
+    """benchmark/reference/sgbm_mesh.py (plain torch, float32, halo rows only
+    from interior neighbours, the whole-frame speckle filter) against the
+    port's halo mode on a mesh of CPU devices, bit for bit."""
+    from benchmark.reference import sgbm_mesh as RSM
+    from stereo_reconstruction_cv_tpu_torch.config import SGBMConfig
+
+    left, right = sinusoid_batch(B=shape[0], H=64, W=96, seed=11)
+    config = {"sgbm": mesh_params(), "mesh": {"data": shape[0], "space": shape[1]},
+              "halo": halo}
+    d, v = (M.gather(x) for x in S.sharded_sgbm_disparity(
+        port_mesh(*shape), torch.from_numpy(left), torch.from_numpy(right),
+        SGBMConfig(**config["sgbm"]), halo=halo))
+    for k in range(shape[0]):
+        dr, vr = RSM.maps(config, torch.from_numpy(left[k]), torch.from_numpy(right[k]))
+        assert torch.equal(d[k], dr) and torch.equal(v[k], vr), k
+        assert 0.2 < float(vr.float().mean()) < 0.95
+
+
+def test_stream_reconstruct_on_a_2x2_mesh_writes_the_reference_clouds(tmp_path):
+    """stream_reconstruct(mesh=) over a 2x2 mesh (each pair's cloud made on
+    its own data row's devices): PLY bytes equal to the plain halo-mode
+    reference's clouds, in the input's order."""
+    from PIL import Image
+
+    from benchmark.reference import rig as RR
+    from benchmark.reference import sgbm_mesh as RSM
+    from stereo_reconstruction_cv_tpu_torch import native
+    from stereo_reconstruction_cv_tpu_torch.config import SGBMConfig
+    from stereo_reconstruction_cv_tpu_torch.io import ply as PLY
+
+    left, right = sinusoid_batch(B=4, H=48, W=96, seed=9)
+    pairs = []
+    for i in range(4):
+        paths = []
+        for name, img in (("l", left[i]), ("r", right[i])):
+            path = str(tmp_path / f"{name}{i}.jpg")
+            Image.fromarray(img).save(path, quality=95)
+            paths.append(path)
+        pairs.append(tuple(paths))
+    Q = np.array([[1, 0, 0, -48.0], [0, 1, 0, -24.0], [0, 0, 0, 100.0], [0, 0, 1 / 0.14, 0]])
+    config = {"sgbm": mesh_params(20), "mesh": {"data": 2, "space": 2}, "halo": 32}
+    out = streaming.stream_reconstruct(pairs, Q, SGBMConfig(**config["sgbm"]),
+                                       str(tmp_path / "mesh"), batch_size=4,
+                                       mesh=port_mesh(2, 2))
+    assert [os.path.basename(p) for p in out] == [f"cloud_{i:04d}.ply" for i in range(4)]
+    for i, path in enumerate(out):
+        frames = [torch.from_numpy(native.load_image(p, True, "libjpeg")) for p in pairs[i]]
+        disp, valid = RSM.maps(config, *frames)
+        cloud = RR.cloud(disp, valid, torch.as_tensor(Q, dtype=torch.float32))
+        assert cloud.shape[0] > 100
+        PLY.write_ply(str(tmp_path / f"ref{i}.ply"), cloud.numpy())
+        with open(path, "rb") as fa, open(tmp_path / f"ref{i}.ply", "rb") as fb:
+            assert fa.read() == fb.read(), i
+
+
+@pytest.mark.parametrize("max_size", [50, 200])
+def test_batched_speckle_join_equals_single_device(monkeypatch, max_size):
+    """Four frames over a 2x2 mesh (two a data row): every frame's keep mask
+    equals the single-device filter, and the batch's boundary records reach
+    the host in one copy."""
+    disp, valid = structured_maps(B=2)
+    disp = np.concatenate([disp, disp[::-1, ::-1]])
+    valid = np.concatenate([valid, valid[::-1, ::-1]])
+    copies = []
+    to_host = S._to_host
+    monkeypatch.setattr(S, "_to_host", lambda x: copies.append(x.shape) or to_host(x))
+    keep = M.gather(S.sharded_speckle_filter(port_mesh(2, 2), torch.from_numpy(disp),
+                                             torch.from_numpy(valid), max_size, 32.0))
+    assert copies == [(2, 5, 2, disp.shape[2])]  # (data rows x boundaries, record, frames, W)
+    for k in range(disp.shape[0]):
+        d, v = torch.from_numpy(disp[k]), torch.from_numpy(valid[k])
+        assert torch.equal(keep[k], SPK.speckle_filter(d, v, max_size, 32.0)), k

@@ -119,6 +119,47 @@ def test_stream_reconstruct_spans_its_cloud_copies(tmp_path, jpeg_pairs):
     assert all(c <= s for c, s in zip(compacts, copies))
 
 
+def _mesh_step(B=4):
+    """dense_batch_step over a 2x2 mesh of CPU devices on B tiny pairs."""
+    from stereo_reconstruction_cv_tpu_torch.parallel import mesh as M
+
+    frames = [_pair(k) for k in range(B)]
+    left, right = (torch.from_numpy(np.stack([f[s] for f in frames])) for s in (0, 1))
+    mesh = M.make_mesh(2, 2, devices=[torch.device("cpu")] * 4)
+    return ST.dense_batch_step(left, right, Q, CFG, mesh)
+
+
+def test_mesh_spans_build_no_record_function_while_off(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("record_function built while no profiler records")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    disp, pts, valid = _mesh_step()
+    assert len(disp) == len(pts) == len(valid) == 4
+
+
+@pytest.mark.parametrize("B", [2, 4])
+def test_mesh_spans_open_once_per_call(B):
+    """A mesh step on B pairs: "mesh.exchange" once per _extend call (each
+    frame's left and right blocks), "mesh.speckle.join" once per batch and
+    "mesh.gather" once per data row, never per shard or per launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _mesh_step(B)
+    ranges = _ranges(prof)
+    names = [n for *_, n in ranges]
+    assert names.count("mesh.exchange") == 2 * B
+    assert names.count("mesh.speckle.join") == 1
+    assert names.count("mesh.gather") == 2
+    assert names.count("sgbm") == 2 * B and names.count("cloud.reproject") == 2
+    join = next((s, e) for s, e, n in ranges if n == "mesh.speckle.join")
+    assert all(e <= join[0] for s, e, n in ranges if n in ("sgbm", "mesh.exchange"))
+    assert all(join[1] <= s for s, e, n in ranges if n == "mesh.gather")
+    assert not _inside(ranges, "mesh.exchange", "sgbm")
+
+
 @pytest.mark.parametrize("ready", [False, True])
 def test_loader_records_a_stall_only_where_a_batch_was_not_ready(monkeypatch, jpeg_pairs, ready):
     """Slow decodes: the consumer comes for batch 0 right after submitting
