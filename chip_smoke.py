@@ -857,7 +857,7 @@ def bench_phase(torch, dev, main_path, dense, speckle):
                                                               render_pair)
 
     others = tuple(k for k in KERNELS if k not in dense + speckle)
-    expect = {1: (("cost_volume",), tuple(k for k in KERNELS if k != "cost_volume")),
+    expect = {1: (("cost_volume",), tuple(k for k in KERNELS if k != "cost_volume"), True),
               2: (dense + speckle, others),
               3: (dense + speckle + ("remap",), tuple(k for k in others if k != "remap")),
               4: ((), tuple(KERNELS)), 5: (dense, speckle + others)}
@@ -1529,6 +1529,18 @@ def main() -> int:
         left, right = textured_pair(rng, H, W, min(D // 2, W // 4))
         return DP.cost_planes(torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev), 63)
 
+    def cost_paths_ms(planes, wide, D, md, reps):
+        """The cost kernel on uint8 planes (packed) and on the same planes as
+        int32, CUDA events, median of `reps`, each with its bound: the bytes
+        of its planes read once and the int16 volume written once. ->
+        (packed ms, int32 ms, packed bound, int32 bound)."""
+        H, W = planes[0].shape
+        cells = H * (W - md - D) * D
+        times = [cuda_ms(lambda: CK.cost_volume(*ps, D, md, 11), reps) for ps in (planes, wide)]
+        bounds = [bound(sum(p.numel() * p.element_size() for p in ps) + 2 * cells,
+                        OPS_PER["cost_volume"] * cells) for ps in (planes, wide)]
+        return (*times, *bounds)
+
     def note(name, err):
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
         if err != 0:
@@ -1643,18 +1655,21 @@ def main() -> int:
         cases = [("720p", 720, 1280, 128, 0, (5, 8)), ("ragged", 721, 1283, 96, 5, (8, 5)),
                  ("pool", 720, 1280, 64, 0, (5,))]
         for label, H, W, D, md, dirs in cases:
-            planes = planes_for(rng, H, W, D, md)
+            planes = planes_for(rng, H, W, D, md)  # uint8: the packed kernel's
+            wide = [p.int() for p in planes]       # int32: the int32 kernel's
             C = CK.cost_volume(*planes, D, md, 11)
             Cp = CK.cost_volume_plain(*planes, D, md, 11)
-            note("cost_volume", max_err(torch, C, Cp))
+            note("cost_volume", max(max_err(torch, C, Cp),
+                                    max_err(torch, CK.cost_volume(*wide, D, md, 11), Cp)))
             del Cp
-            t_k = cuda_ms(lambda: CK.cost_volume(*planes, D, md, 11), 5)
+            t_k, t_w, b_k, b_w = cost_paths_ms(planes, wide, D, md, 5)
             t_p = cuda_ms(lambda: CK.cost_volume_plain(*planes, D, md, 11), 3)
-            log(f"[{label} {H}x{W}x{D} md={md}] cost_volume: equal; kernel {t_k:.3f} ms, plain {t_p:.3f} ms")
+            log(f"[{label} {H}x{W}x{D} md={md}] cost_volume: packed and int32 kernels equal; "
+                f"packed {t_k:.3f} ms (share {b_k['bound_ms'] / t_k:.3f} of "
+                f"{b_k['bound_ms']:.4f}), int32 {t_w:.3f} ms (share {b_w['bound_ms'] / t_w:.3f} of "
+                f"{b_w['bound_ms']:.4f}), plain {t_p:.3f} ms")
             if label == "720p":
-                results["cost_volume"].update(
-                    ms=t_k, plain_ms=t_p,
-                    **bound(4 * 4 * H * W + 2 * C.numel(), OPS_PER["cost_volume"] * C.numel()))
+                results["cost_volume"].update(ms=t_k, plain_ms=t_p, int32_ms=t_w, **b_k)
             for nd in dirs:
                 groups = [g for g in SK.delta_groups(nd) if g]
 
@@ -1783,16 +1798,22 @@ def main() -> int:
     main_counts = dict.fromkeys(KERNELS, 0)
 
     @contextlib.contextmanager
-    def main_path(label, launched, not_launched=()):
+    def main_path(label, launched, not_launched=(), wide_cost=False):
         """Counts zeroed before the body and read after it: each kernel of
-        `launched` must have run in it, none of `not_launched`."""
-        for mod in (CK, SK, LK, SPK, OC, RK):
-            for k in mod.launches:
-                mod.launches[k] = 0
+        `launched` must have run in it, none of `not_launched`, and every
+        cost launch must have taken the packed kernel unless `wide_cost`
+        (config 1's int32 planes)."""
+        for counts in (CK.launches, CK.cost_paths, SK.launches, LK.launches, SPK.launches,
+                       OC.launches, RK.launches):
+            for k in counts:
+                counts[k] = 0
         yield
         got = {**CK.launches, **SK.launches, **LK.launches, **SPK.launches, **OC.launches,
                **RK.launches}
-        log(f"launches on {label}: {json.dumps(got)}")
+        log(f"launches on {label}: {json.dumps(got)}; cost kernels {json.dumps(CK.cost_paths)}")
+        if CK.cost_paths["i32"] and not wide_cost:
+            raise AssertionError(f"{label}: {CK.cost_paths['i32']} cost launches took the "
+                                 "int32 kernel; the main paths' planes are bytes")
         for k in main_counts:
             main_counts[k] += got[k]
         missing = [k for k in launched if got[k] == 0]
@@ -2145,8 +2166,11 @@ def main() -> int:
             h0, h1 = max(0, y0 - r), min(H, y1 + r)
             ref = CK.cost_volume_plain(*(p[h0:h1] for p in planes), D, md, cfg.block_size)
             err = max(err, max_err(torch, C[y0:y1], ref[y0 - h0:y1 - h0]))
+        wide = [p.int() for p in planes]
+        err = max(err, max_err(torch, CK.cost_volume(*wide, D, md, cfg.block_size), C))
         note("cost_volume", err)
-        log(f"[4K {H}x{W4}x{D}] cost_volume: equal in {len(range(0, H, band))} row bands")
+        log(f"[4K {H}x{W4}x{D}] cost_volume: equal in {len(range(0, H, band))} row bands; "
+            "the int32 kernel equal to the packed one")
         # Path sweeps: each direction alone, then the accumulated group.
         C32 = C.to(torch.int32)
         partial = torch.zeros_like(C32)
@@ -2202,8 +2226,14 @@ def main() -> int:
             raise AssertionError("the main path's 4K disparity map differs from the plain chain's")
         log("[4K] disparity map of the main path equals the plain chain's")
         # Each kernel alone at this shape, and the host speckle pass.
+        t_k, t_w, b_k, b_w = cost_paths_ms(planes, wide, D, md, 3)
+        del wide
+        log(f"[4K {H}x{W4}x{D}] cost_volume: packed {t_k:.3f} ms (share "
+            f"{b_k['bound_ms'] / t_k:.3f} of {b_k['bound_ms']:.4f}), int32 {t_w:.3f} ms (share "
+            f"{b_w['bound_ms'] / t_w:.3f} of {b_w['bound_ms']:.4f})")
         breakdown = {
-            "cost_volume": cuda_ms(lambda: CK.cost_volume(*planes, D, md, cfg.block_size), 3),
+            "cost_volume": t_k,
+            "cost_volume (int32 planes)": t_w,
             f"sgm_path_sweep x{nd - 1}": cuda_ms(lambda: SK.path_deltas_cuda(C, nd, p1, p2), 3),
             "sgm_sweep_wta": cuda_ms(lambda: SK.sweep_wta_cuda(C, vols, nd, p1, p2, ur, md), 3),
             "lr_check (graph replay)": graph_ms(lambda: LK.lr_check_maps(

@@ -198,6 +198,7 @@ def nvjpeg_library() -> ctypes.CDLL:
 def _declare_kernels(lib: ctypes.CDLL) -> None:
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.srcv_cost_volume.argtypes = [P] * 5 + [I] * 9 + [P]
+    lib.srcv_cost_volume_u8x2.argtypes = [P] * 5 + [I] * 9 + [P]
     lib.srcv_sgm_path_sweep.argtypes = [P] * 4 + [I] * 9 + [P]
     lib.srcv_sgm_sweep_wta.argtypes = [P] * 7 + [I] * 12 + [P]
     lib.srcv_sgm_sweep_sum.argtypes = [P] * 4 + [I] * 10 + [P]
@@ -207,9 +208,10 @@ def _declare_kernels(lib: ctypes.CDLL) -> None:
     lib.srcv_wta.argtypes = [P] * 3 + [I] * 11 + [P] * 6
     lib.srcv_op_chain.argtypes = [P, P, I, I, I, I, P]
     lib.srcv_remap_bilinear.argtypes = [P] * 3 + [I] * 6 + [P]
-    for fn in (lib.srcv_cost_volume, lib.srcv_sgm_path_sweep, lib.srcv_sgm_sweep_wta,
-               lib.srcv_sgm_sweep_sum, lib.srcv_lr_check, lib.srcv_speckle_labels,
-               lib.srcv_speckle_keep, lib.srcv_wta, lib.srcv_op_chain, lib.srcv_remap_bilinear):
+    for fn in (lib.srcv_cost_volume, lib.srcv_cost_volume_u8x2, lib.srcv_sgm_path_sweep,
+               lib.srcv_sgm_sweep_wta, lib.srcv_sgm_sweep_sum, lib.srcv_lr_check,
+               lib.srcv_speckle_labels, lib.srcv_speckle_keep, lib.srcv_wta, lib.srcv_op_chain,
+               lib.srcv_remap_bilinear):
         fn.restype = I
     lib.srcv_error_string.argtypes = [I]
     lib.srcv_error_string.restype = ctypes.c_char_p

@@ -6,7 +6,10 @@ Plain versions of ``stereo_reconstruction_cv_tpu/ops/disparity.py``
 TPU kernel ``ops/pallas/cost_pallas.py:cost_volume_pallas``.
 
 ``cost_volume`` dispatches on the device of its inputs: CPU tensors take the
-plain version, CUDA tensors launch the kernel (or raise). All integer.
+plain version, CUDA tensors launch a kernel (or raise). On the card the
+planes' dtype picks the kernel: uint8 planes take the packed one (two
+disparities a 32-bit register) wherever its 16-bit lanes hold every box sum
+(``u8x2_fits``), wider planes the int32 one. All integer.
 """
 
 from __future__ import annotations
@@ -15,8 +18,11 @@ import torch
 
 from stereo_reconstruction_cv_tpu_torch import _build
 
-# Kernel launches by this module's wrapper (read and reset by chip_smoke.py).
+# Kernel launches by this module's wrapper (read and reset by chip_smoke.py),
+# and which kernel each cost_volume launch took: "u8x2" the packed kernel on
+# uint8 planes, "i32" the int32 one.
 launches = {"cost_volume": 0}
+cost_paths = {"u8x2": 0, "i32": 0}
 
 
 def xsobel_clip(img: torch.Tensor, cap: int = 63) -> torch.Tensor:
@@ -112,38 +118,55 @@ def cost_volume_plain(sl, sr, rawl, rawr, num_disp: int, min_disp: int = 0,
 # several blocks fit on one SM.
 _SMEM_MAX = 232448
 _SMEM_TARGET = 100 * 1024
+# The largest pixel cost of byte planes (a BT distance of 255 on the Sobel
+# plane plus 255 >> 2 on the raw one), and the largest box sum a 16-bit lane
+# of the packed kernel holds without carrying into its neighbour.
+_U8_COST_MAX = 255 + (255 >> 2)
+_LANE_MAX = 0xFFFF
 
 
-def cost_smem_bytes(block_size: int, groups: int, cols: int) -> int:
-    """Shared memory of one cost block (csrc/cost_volume.cu smem_bytes), 16
-    bytes an entry: two buffers of both planes' triples of `cols` left and
-    cols + 8*groups - 1 right columns, two buffers of the vertical sums per
-    (column + 1, group), and a ring of block_size rows of pixel costs per
-    (column, group)."""
-    staged = 2 * cols + 8 * groups - 1
-    return 16 * (4 * staged + 2 * groups * (cols + 1) + block_size * cols * groups)
+def u8x2_fits(block_size: int) -> bool:
+    """Whether the packed kernel is exact on any uint8 planes at this box:
+    block_size^2 * 318 <= 65535, i.e. block_size <= 14 (csrc/cost_volume.cu's
+    head says why)."""
+    return block_size * block_size * _U8_COST_MAX <= _LANE_MAX
 
 
-def cost_tile(block_size: int, num_disp: int, height: int):
+def cost_smem_bytes(block_size: int, groups: int, cols: int, packed: bool = False) -> int:
+    """Shared memory of one cost block (csrc/cost_volume.cu smem_bytes,
+    smem_bytes_u8x2): two buffers of both planes' triples of `cols` left and
+    cols + 8*groups - 1 right columns (32 bytes a column, 24 for the packed
+    kernel's 16-bit lanes), two buffers of the vertical sums per (column +
+    1, group) (column + 2 for the packed kernel), and a ring of block_size
+    rows of pixel costs per (column, group), 16 bytes an entry."""
+    right = cols + 8 * groups - 1
+    sums = 2 * groups * (cols + (2 if packed else 1))
+    staged = (48 if packed else 64) * (cols + right)
+    return staged + 16 * (sums + block_size * cols * groups)
+
+
+def cost_tile(block_size: int, num_disp: int, height: int, packed: bool = False):
     """(groups of 8 disparities, staged columns NC, output rows per band) of
-    one cost block.
+    one cost block; `packed` for the uint8 kernel.
 
     NC is a multiple of 32 that leaves at least 32 output columns
     (NC - block_size + 1); groups start at 4 (fewer for small D) and halve
     while the block's shared memory exceeds 100 KB; a box too tall for even
     that stages block_size + 7 columns. Bands are 128 rows from 1024 rows up
-    (fewer halo rows per output row) and 64 below, where taller bands leave
-    too few blocks to fill the card. Raises where no tile fits."""
+    (fewer halo rows per output row; 256 for the packed kernel, whose halo
+    rows cost relatively more: 3.7 against 3.8-4.0 ms at 4K x 256) and 64
+    below, where taller bands leave too few blocks to fill the card. Raises
+    where no tile fits."""
     groups = min(4, -(-num_disp // 8))
     cols = 32 * (-(-(block_size + 31) // 32))
-    while groups > 1 and cost_smem_bytes(block_size, groups, cols) > _SMEM_TARGET:
+    while groups > 1 and cost_smem_bytes(block_size, groups, cols, packed) > _SMEM_TARGET:
         groups //= 2
-    if cost_smem_bytes(block_size, groups, cols) > _SMEM_MAX:
+    if cost_smem_bytes(block_size, groups, cols, packed) > _SMEM_MAX:
         cols = block_size + 7
-    if cost_smem_bytes(block_size, groups, cols) > _SMEM_MAX:
+    if cost_smem_bytes(block_size, groups, cols, packed) > _SMEM_MAX:
         raise ValueError(f"block_size={block_size}: the cost kernel's ring of "
                          f"{block_size} rows exceeds a block's shared memory")
-    return groups, cols, 128 if height >= 1024 else 64
+    return groups, cols, (256 if packed else 128) if height >= 1024 else 64
 
 
 def cost_vector_store(num_disp: int, out_ptr: int) -> bool:
@@ -158,7 +181,9 @@ def cost_volume(sl, sr, rawl, rawr, num_disp: int, min_disp: int = 0,
     """Fused BT cost + box sum over the cropped columns -> (H, Wc, D) int16.
 
     Inputs: four (H, W) integer planes (clipped Sobel and raw intensity,
-    border-pinned by the caller), all on one device."""
+    border-pinned by the caller), all on one device. On the card, four
+    uint8 planes take the packed kernel where ``u8x2_fits(block_size)``;
+    other planes are widened to int32 for the int32 kernel."""
     H, W = sl.shape
     x0 = min_disp + num_disp
     if min_disp < 0 or num_disp < 1 or W <= x0:
@@ -172,17 +197,21 @@ def cost_volume(sl, sr, rawl, rawr, num_disp: int, min_disp: int = 0,
         return cost_volume_plain(sl, sr, rawl, rawr, num_disp, min_disp, block_size)
     if sl.device.type != "cuda":
         raise ValueError(f"cost_volume: unsupported device {sl.device}")
-    groups, cols, rows = cost_tile(block_size, num_disp, H)
-    planes = [p.to(torch.int32).contiguous() for p in planes]
+    packed = all(p.dtype == torch.uint8 for p in planes) and u8x2_fits(block_size)
+    groups, cols, rows = cost_tile(block_size, num_disp, H, packed)
+    dtype = torch.uint8 if packed else torch.int32
+    planes = [p.to(dtype).contiguous() for p in planes]
     out = torch.empty((H, W - x0, num_disp), dtype=torch.int16, device=sl.device)
     vec = cost_vector_store(num_disp, out.data_ptr())
     lib = _build.kernels_library()
+    launch = lib.srcv_cost_volume_u8x2 if packed else lib.srcv_cost_volume
     with torch.cuda.device(sl.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.srcv_cost_volume(
+        err = launch(
             *(p.data_ptr() for p in planes), out.data_ptr(),
             H, W, num_disp, min_disp, block_size, groups, cols, rows, int(vec), stream,
         )
     _build.check(lib, err, "cost_volume")
     _build.count(launches, "cost_volume")
+    _build.count(cost_paths, "u8x2" if packed else "i32")
     return out

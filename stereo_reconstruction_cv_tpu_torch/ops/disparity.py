@@ -62,13 +62,16 @@ def _validate(H: int, W: int, cfg: SGBMConfig) -> None:
 
 
 def cost_planes(left: torch.Tensor, right: torch.Tensor, cap: int):
-    """The four int32 planes of the pixel cost: clipped Sobel and raw
-    intensity of both views, with the first and last column of each pinned
-    to cap (OpenCV's calcPixelCostBT memset)."""
+    """The four planes of the pixel cost: clipped Sobel and raw intensity of
+    both views, with the first and last column of each pinned to cap
+    (OpenCV's calcPixelCostBT memset). uint8 where every value fits a byte
+    (uint8 views and a Sobel range [0, 2 * cap] within 255), which the
+    cost kernel reads two disparities a register; else int32."""
+    byte = left.dtype == right.dtype == torch.uint8 and 2 * cap <= 255
+    dtype = torch.uint8 if byte else torch.int32
     planes = []
-    for p in (xsobel_clip(left, cap), xsobel_clip(right, cap),
-              left.to(torch.int32), right.to(torch.int32)):
-        p = p.clone()
+    for p in (xsobel_clip(left, cap), xsobel_clip(right, cap), left, right):
+        p = p.to(dtype, copy=True)
         p[:, 0] = cap
         p[:, -1] = cap
         planes.append(p)

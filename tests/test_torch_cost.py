@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from stereo_reconstruction_cv_tpu.ops import disparity as RD
+from stereo_reconstruction_cv_tpu_torch.ops import disparity as DP
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import cost as CK
 
 
@@ -77,9 +78,64 @@ def test_cost_bounds():
 
 def test_cpu_wrapper_launches_no_kernel():
     planes = [torch.from_numpy(p) for p in _pinned_planes(*_pair(5, 12, 40))]
-    before = dict(CK.launches)
+    before, paths = dict(CK.launches), dict(CK.cost_paths)
     CK.cost_volume(*planes, 16, 0)
-    assert CK.launches == before
+    CK.cost_volume(*[p.to(torch.uint8) for p in planes], 16, 0)
+    assert CK.launches == before and CK.cost_paths == paths
+
+
+@pytest.mark.parametrize("cap,dtype", [(63, torch.uint8), (127, torch.uint8),
+                                       (128, torch.int32), (200, torch.int32)])
+def test_cost_planes_are_bytes_where_they_fit(cap, dtype):
+    """cost_planes == the reference's pinned xsobel_clip and raw planes, as
+    uint8 while 2 * cap <= 255 (the packed kernel's planes), else int32."""
+    left, right = _pair(7, 23, 50)
+    got = DP.cost_planes(torch.from_numpy(left), torch.from_numpy(right), cap)
+    for g, ref in zip(got, _pinned_planes(left, right, cap)):
+        assert g.dtype == dtype
+        np.testing.assert_array_equal(g.numpy().astype(np.int32), ref)
+
+
+def test_cost_planes_of_wider_views_stay_int32():
+    left, right = _pair(8, 9, 30)
+    got = DP.cost_planes(torch.from_numpy(left).int(), torch.from_numpy(right).int(), 63)
+    assert all(p.dtype == torch.int32 for p in got)
+    for g, ref in zip(got, _pinned_planes(left, right)):
+        np.testing.assert_array_equal(g.numpy(), ref)
+
+
+@pytest.mark.parametrize("block,D,min_disp", [(11, 16, 0), (5, 24, 3), (14, 16, 1)])
+def test_cost_volume_plain_of_byte_planes_equals_int32(block, D, min_disp):
+    """The plain version on the uint8 planes == on the same planes as int32
+    (the packed and the int32 kernel are each held to it on the card)."""
+    planes = [torch.from_numpy(p) for p in _pinned_planes(*_pair(9, 30, 80))]
+    wide = CK.cost_volume_plain(*planes, D, min_disp, block)
+    narrow = CK.cost_volume_plain(*[p.to(torch.uint8) for p in planes], D, min_disp, block)
+    assert narrow.dtype == torch.int16 and torch.equal(narrow, wide)
+
+
+def test_u8x2_fits_while_lanes_hold_every_box_sum():
+    """block^2 * (255 + 63) within 16 bits: block 14 (62,328), not 15 (71,550)."""
+    assert [CK.u8x2_fits(b) for b in (1, 11, 14, 15, 22)] == [True, True, True, False, False]
+
+
+@pytest.mark.parametrize("block", [1, 3, 4, 5, 11, 14])
+@pytest.mark.parametrize("D", [1, 17, 96, 256])
+def test_packed_cost_tile_fits_and_covers(block, D):
+    groups, cols, rows = CK.cost_tile(block, D, 720, packed=True)
+    assert rows == 64 and CK.cost_tile(block, D, 2160, packed=True) == (groups, cols, 256)
+    assert 1 <= groups <= 4 and 8 * (groups - 1) < max(D, 8)
+    assert cols % 32 == 0 and cols - block + 1 >= 32
+    assert CK.cost_smem_bytes(block, groups, cols, packed=True) <= 100 * 1024
+    # csrc/cost_volume.cu srcv_cost_volume_u8x2: one vertical item and one
+    # staged item a thread (256 vertical threads of 320)
+    assert cols * groups <= 256 and 2 * cols + 8 * groups - 1 <= 320
+
+
+def test_packed_cost_smem_bytes_counts_each_buffer():
+    # 11 x 64 columns x 4 groups: staged words 2 x 24 x (64 + 95), vertical
+    # sums 2 x 4 x 66 and the ring 11 x 256 entries of 16 bytes
+    assert CK.cost_smem_bytes(11, 4, 64, packed=True) == 48 * 159 + 16 * (528 + 2816)
 
 
 @pytest.mark.slow

@@ -74,42 +74,137 @@ def dev():
     return torch.device("cuda")
 
 
-def _planes(seed, H, W, dev, cap=63):
+def _planes(seed, H, W, dev, cap=63, dtype=torch.int32):
     rng = np.random.default_rng(seed)
     left = torch.from_numpy(rng.integers(0, 256, (H, W), dtype=np.uint8)).to(dev)
     right = torch.roll(left, -3, 1)
     out = []
-    for p in (CK.xsobel_clip(left, cap), CK.xsobel_clip(right, cap), left.int(), right.int()):
-        p = p.clone()
+    for p in (CK.xsobel_clip(left, cap), CK.xsobel_clip(right, cap), left, right):
+        p = p.to(dtype, copy=True)
         p[:, 0] = cap
         p[:, -1] = cap
         out.append(p)
     return out
 
 
+# uint8 planes take the packed kernel, int32 planes (byte-range values) the
+# int32 one; both are held to the plain version on the same shapes.
+PLANE_DTYPES = [torch.uint8, torch.int32]
+
+
+def _paths_grown(fn):
+    """fn()'s result and how much it grew each of CK.cost_paths' counts."""
+    before = dict(CK.cost_paths)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: CK.cost_paths[k] - before[k] for k in before}
+
+
+@pytest.mark.parametrize("dtype", PLANE_DTYPES)
 @pytest.mark.parametrize("H,W,D,md,block", [
     (24, 60, 16, 0, 11), (33, 150, 100, 3, 11), (17, 41, 32, 8, 5), (9, 50, 48, 1, 11),
 ])
-def test_cost_volume_kernel_equals_plain(dev, H, W, D, md, block):
-    planes = _planes(H * W, H, W, dev)
-    got = CK.cost_volume(*planes, D, md, block)
+def test_cost_volume_kernel_equals_plain(dev, H, W, D, md, block, dtype):
+    planes = _planes(H * W, H, W, dev, dtype=dtype)
+    got, grew = _paths_grown(lambda: CK.cost_volume(*planes, D, md, block))
     ref = CK.cost_volume_plain(*planes, D, md, block)
-    torch.cuda.synchronize()
     assert torch.equal(got, ref)
+    assert grew == ({"u8x2": 1, "i32": 0} if dtype == torch.uint8 else {"u8x2": 0, "i32": 1})
 
 
+@pytest.mark.parametrize("dtype", PLANE_DTYPES)
 @pytest.mark.parametrize("H", [9, 70])  # one row band short of 64 rows, and two
 @pytest.mark.parametrize("block", [1, 4, 5, 11])
 @pytest.mark.parametrize("D", [1, 17, 96, 100, 256])
-def test_cost_volume_tiles_and_edges_equal_plain(dev, H, block, D):
+def test_cost_volume_tiles_and_edges_equal_plain(dev, H, block, D, dtype):
     """Cropped width 131: no multiple of any tile's columns (32, 54, 60, 61);
     D % 8 != 0 takes the masked scalar stores."""
     md = 3
-    planes = _planes(H + block + D, H, md + D + 131, dev)
+    planes = _planes(H + block + D, H, md + D + 131, dev, dtype=dtype)
     got = CK.cost_volume(*planes, D, md, block)
     ref = CK.cost_volume_plain(*planes, D, md, block)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+def _extreme_planes(kind, H, W, dev, cap=63):
+    """uint8 planes at the packed lanes' extremes, pinned as cost_planes pins
+    them: "alternating", raw columns 0/255 and Sobel columns 0/2*cap, the
+    right view one column over; "flat", the left view at 255 and 2*cap, the
+    right at 0, so every BT term away from the pins is 255 or 2*cap and the
+    box sums reach check_cost_bounds' worst case; "full", the left at 255
+    and the right at 0 on both planes (no pins), a pixel cost of 318 and box
+    sums past int16 (the plain version's wrap)."""
+    x = torch.arange(W, device=dev)
+    odd = (x % 2 == 1).expand(H, W)
+    byte = torch.uint8
+    if kind == "alternating":
+        sl, rl = (torch.where(odd, 2 * cap, 0), torch.where(odd, 255, 0))
+        sr, rr = (torch.where(odd, 0, 2 * cap), torch.where(odd, 0, 255))
+    elif kind in ("flat", "full"):
+        top = 255 if kind == "full" else 2 * cap
+        sl, rl = torch.full((H, W), top, device=dev), torch.full((H, W), 255, device=dev)
+        sr, rr = torch.zeros(H, W, device=dev), torch.zeros(H, W, device=dev)
+    planes = [p.to(byte) for p in (sl, sr, rl, rr)]
+    if kind != "full":
+        for p in planes:
+            p[:, 0] = cap
+            p[:, -1] = cap
+    return planes
+
+
+@pytest.mark.parametrize("kind,block", [("alternating", 11), ("flat", 11), ("full", 14),
+                                        ("full", 11), ("alternating", 4)])
+@pytest.mark.parametrize("D", [64, 100])
+def test_cost_volume_packed_lanes_at_their_extremes_equal_plain(dev, kind, block, D):
+    H, W = 70, 3 + D + 131
+    planes = _extreme_planes(kind, H, W, dev)
+    got, grew = _paths_grown(lambda: CK.cost_volume(*planes, D, 3, block))
+    ref = CK.cost_volume_plain(*planes, D, 3, block)
+    assert grew == {"u8x2": 1, "i32": 0}
+    assert torch.equal(got, ref)
+    if kind == "flat" and block == 11:
+        # the worst box sum check_cost_bounds admits at cap 63: 121 * 189
+        assert int(got.max()) == 121 * (2 * 63 + 63)
+    if kind == "full" and block == 14:
+        assert int((got.int() & 0xFFFF).max()) == 14 * 14 * 318  # past int16, below 2^16
+
+
+def test_cost_volume_takes_int32_kernel_where_lanes_would_carry(dev):
+    """A box of 15 on byte planes could carry between 16-bit lanes: the
+    planes are widened for the int32 kernel, which wraps as the plain
+    version does."""
+    planes = _extreme_planes("full", 40, 3 + 32 + 60, dev)
+    got, grew = _paths_grown(lambda: CK.cost_volume(*planes, 32, 3, 15))
+    assert grew == {"u8x2": 0, "i32": 1}
+    assert torch.equal(got, CK.cost_volume_plain(*planes, 32, 3, 15))
+
+
+@pytest.mark.parametrize("H", [2160, 1112])  # a 4K frame, and one halo-extended mesh block
+def test_cost_volume_packed_equals_int32_kernel_at_4k(dev, H):
+    W, D = 3840, 256
+    planes = _planes(7, H, W, dev)
+    bytes_ = [p.to(torch.uint8) for p in planes]
+    got, grew = _paths_grown(lambda: CK.cost_volume(*bytes_, D, 0, 11))
+    assert grew == {"u8x2": 1, "i32": 0}
+    assert torch.equal(got, CK.cost_volume(*planes, D, 0, 11))
+
+
+def test_sgbm_disparity_takes_packed_cost_kernel(dev):
+    """The main path's planes are bytes (cap 63), so one SGBM call is one
+    packed launch; int32 planes of the same pair take the int32 kernel."""
+    rng = np.random.default_rng(11)
+    left = torch.from_numpy(rng.integers(0, 256, (48, 160), dtype=np.uint8)).to(dev)
+    right = torch.roll(left, -4, 1)
+    cfg = DP.SGBMConfig(num_disparities=32, num_directions=5)
+    _, grew = _paths_grown(lambda: DP.sgbm_disparity(left, right, cfg))
+    assert grew == {"u8x2": 1, "i32": 0}
+    planes = DP.cost_planes(left, right, cfg.pre_filter_cap)
+    assert all(p.dtype == torch.uint8 for p in planes)
+    wide = [p.int() for p in planes]
+    C, grew = _paths_grown(lambda: CK.cost_volume(*wide, 32, 0, cfg.block_size))
+    assert grew == {"u8x2": 0, "i32": 1}
+    assert torch.equal(C, CK.cost_volume(*planes, 32, 0, cfg.block_size))
 
 
 def _sweep_all_directions(C, start, p1=P1, p2=P2):
