@@ -15,6 +15,12 @@ together, then one link. Each library is written to ``build/`` at the
 repository root under a name that carries a digest of its sources and flags,
 so an edited source is never served by a stale library. A build that fails raises: there is no fallback.
 Nothing is built or loaded at import time.
+
+Every wrapper in ``ops/cuda/`` launches its kernel through one seam,
+``launch``: it loads the kernels library, enters the device, appends the
+current stream, raises on the returned error code and counts the launch.
+``KERNELS`` declares each entry point's signature, once; ``cuda_device`` is
+the wrappers' check that their inputs lie on one CUDA device.
 """
 
 from __future__ import annotations
@@ -195,25 +201,30 @@ def nvjpeg_library() -> ctypes.CDLL:
     return lib
 
 
+# Every entry point of the kernels library (csrc/*.cu): its arguments before
+# the stream, which `launch` appends. Each returns a CUDA error code.
+_P, _I = ctypes.c_void_p, ctypes.c_int
+KERNELS = {
+    "srcv_cost_volume": [_P] * 5 + [_I] * 9,
+    "srcv_cost_volume_u8x2": [_P] * 5 + [_I] * 9,
+    "srcv_sgm_path_sweep": [_P] * 4 + [_I] * 9,
+    "srcv_sgm_sweep_wta": [_P] * 7 + [_I] * 12,
+    "srcv_sgm_sweep_sum": [_P] * 4 + [_I] * 10,
+    "srcv_lr_check": [_P] * 4 + [_I] * 7,
+    "srcv_speckle_labels": [_P] * 3 + [_I] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_float],
+    "srcv_speckle_keep": [_P] * 4 + [_I, _I, ctypes.c_longlong, _I],
+    "srcv_wta": [_P] * 3 + [_I] * 11 + [_P] * 5,
+    "srcv_op_chain": [_P] * 2 + [_I] * 4,
+    "srcv_remap_bilinear": [_P] * 3 + [_I] * 6,
+}
+
+
 def _declare_kernels(lib: ctypes.CDLL) -> None:
-    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.srcv_cost_volume.argtypes = [P] * 5 + [I] * 9 + [P]
-    lib.srcv_cost_volume_u8x2.argtypes = [P] * 5 + [I] * 9 + [P]
-    lib.srcv_sgm_path_sweep.argtypes = [P] * 4 + [I] * 9 + [P]
-    lib.srcv_sgm_sweep_wta.argtypes = [P] * 7 + [I] * 12 + [P]
-    lib.srcv_sgm_sweep_sum.argtypes = [P] * 4 + [I] * 10 + [P]
-    lib.srcv_lr_check.argtypes = [P] * 4 + [I] * 7 + [P]
-    lib.srcv_speckle_labels.argtypes = [P, P, P, I, I, LL, LL, ctypes.c_float, P]
-    lib.srcv_speckle_keep.argtypes = [P, P, P, P, I, I, LL, I, P]
-    lib.srcv_wta.argtypes = [P] * 3 + [I] * 11 + [P] * 6
-    lib.srcv_op_chain.argtypes = [P, P, I, I, I, I, P]
-    lib.srcv_remap_bilinear.argtypes = [P] * 3 + [I] * 6 + [P]
-    for fn in (lib.srcv_cost_volume, lib.srcv_cost_volume_u8x2, lib.srcv_sgm_path_sweep,
-               lib.srcv_sgm_sweep_wta, lib.srcv_sgm_sweep_sum, lib.srcv_lr_check,
-               lib.srcv_speckle_labels, lib.srcv_speckle_keep, lib.srcv_wta, lib.srcv_op_chain,
-               lib.srcv_remap_bilinear):
-        fn.restype = I
-    lib.srcv_error_string.argtypes = [I]
+    for entry, argtypes in KERNELS.items():
+        fn = getattr(lib, entry)
+        fn.argtypes = [*argtypes, _P]
+        fn.restype = _I
+    lib.srcv_error_string.argtypes = [_I]
     lib.srcv_error_string.restype = ctypes.c_char_p
 
 
@@ -260,11 +271,36 @@ def kernel_instance(entry: str) -> str:
     return f"{name}<{','.join(args)}>"
 
 
-def check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    """Raise if a launch function returned a CUDA error code."""
+def cuda_device(what: str, *tensors: torch.Tensor) -> torch.device:
+    """The one CUDA device every tensor lies on; ValueError naming `what`
+    where one lies on the CPU or another device."""
+    dev = tensors[0].device
+    if dev.type == "cuda":
+        for t in tensors[1:]:  # a plain loop: this runs before every launch
+            if t.device != dev:
+                break
+        else:
+            return dev
+    raise ValueError(f"{what}: CUDA kernel called on tensors on "
+                     f"{sorted({str(t.device) for t in tensors})}: inputs must all lie on one "
+                     "CUDA device")
+
+
+def launch(entry: str, device: torch.device, *args, counts: tuple[dict, str] | None = None) -> None:
+    """Launch kernel `entry` (a key of KERNELS) on `device`'s current stream:
+    `args` are its arguments before the stream (pointers as ints). Raises
+    RuntimeError naming the kernel if the launch returned a CUDA error;
+    otherwise `counts`, a module's launch-count dict and a kernel's name in
+    it, gains the launch (count)."""
+    lib = kernels_library()
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        name = lib.srcv_error_string(err).decode()
-        raise RuntimeError(f"{what}: launch failed with CUDA error {err} ({name})")
+        what = entry if counts is None else counts[1]
+        raise RuntimeError(f"{what}: launch failed with CUDA error {err} "
+                           f"({lib.srcv_error_string(err).decode()})")
+    if counts is not None:
+        count(*counts)
 
 
 def count(launches: dict, name: str) -> None:

@@ -18,9 +18,10 @@ import torch
 
 from stereo_reconstruction_cv_tpu_torch import _build
 
-# Kernel launches by this module's wrapper (read and reset by chip_smoke.py),
-# and which kernel each cost_volume launch took: "u8x2" the packed kernel on
-# uint8 planes, "i32" the int32 one.
+# Kernel launches by this module's wrapper, and which kernel each
+# cost_volume launch took: "u8x2" the packed kernel on uint8 planes, "i32"
+# the int32 one. Read by the tests, chip_smoke.py (which resets them) and
+# utils/timing.graph_ms (which adds a graph's replays).
 launches = {"cost_volume": 0}
 cost_paths = {"u8x2": 0, "i32": 0}
 
@@ -195,23 +196,16 @@ def cost_volume(sl, sr, rawl, rawr, num_disp: int, min_disp: int = 0,
         raise ValueError("the four planes must share one (H, W) shape and device")
     if sl.device.type == "cpu":
         return cost_volume_plain(sl, sr, rawl, rawr, num_disp, min_disp, block_size)
-    if sl.device.type != "cuda":
-        raise ValueError(f"cost_volume: unsupported device {sl.device}")
+    dev = _build.cuda_device("cost_volume", sl)  # the planes share it (checked above)
     packed = all(p.dtype == torch.uint8 for p in planes) and u8x2_fits(block_size)
     groups, cols, rows = cost_tile(block_size, num_disp, H, packed)
     dtype = torch.uint8 if packed else torch.int32
     planes = [p.to(dtype).contiguous() for p in planes]
-    out = torch.empty((H, W - x0, num_disp), dtype=torch.int16, device=sl.device)
+    out = torch.empty((H, W - x0, num_disp), dtype=torch.int16, device=dev)
     vec = cost_vector_store(num_disp, out.data_ptr())
-    lib = _build.kernels_library()
-    launch = lib.srcv_cost_volume_u8x2 if packed else lib.srcv_cost_volume
-    with torch.cuda.device(sl.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(
-            *(p.data_ptr() for p in planes), out.data_ptr(),
-            H, W, num_disp, min_disp, block_size, groups, cols, rows, int(vec), stream,
-        )
-    _build.check(lib, err, "cost_volume")
-    _build.count(launches, "cost_volume")
+    _build.launch("srcv_cost_volume_u8x2" if packed else "srcv_cost_volume", dev,
+                  *(p.data_ptr() for p in planes), out.data_ptr(),
+                  H, W, num_disp, min_disp, block_size, groups, cols, rows, int(vec),
+                  counts=(launches, "cost_volume"))
     _build.count(cost_paths, "u8x2" if packed else "i32")
     return out

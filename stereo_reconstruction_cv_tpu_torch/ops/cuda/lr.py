@@ -22,7 +22,8 @@ _BIG = 1 << 29
 SMEM_BLOCK_MAX = 232448
 SMEM_DEFAULT = 48 * 1024
 
-# Kernel launches by this module's wrapper (read and reset by chip_smoke.py).
+# Kernel launches by this module's wrapper: read by the tests, chip_smoke.py
+# (which resets them) and utils/timing.graph_ms (which adds a graph's replays).
 launches = {"lr_check": 0}
 
 
@@ -111,8 +112,7 @@ def lr_check_maps(best: torch.Tensor, minS: torch.Tensor, disp: torch.Tensor,
     if dev.type == "cpu":
         keep = lr_check_maps_plain(best, minS, disp, num_disp, min_disp, max_diff)
         return keep if out is None else out.logical_and_(keep)
-    if dev.type != "cuda" or minS.device != dev or disp.device != dev:
-        raise ValueError("lr_check_maps: inputs must all lie on one CUDA device")
+    _build.cuda_device("lr_check_maps", best, minS, disp)
     if out is not None and not out.is_contiguous():
         raise ValueError("lr_check_maps: out must be contiguous on CUDA")
     dq = 1
@@ -127,13 +127,7 @@ def lr_check_maps(best: torch.Tensor, minS: torch.Tensor, disp: torch.Tensor,
     minS = minS.to(torch.int32).contiguous()
     disp = disp.to(torch.float32).contiguous()
     keep = torch.empty((H, Wc), dtype=torch.bool, device=dev) if out is None else out
-    lib = _build.kernels_library()
-    with torch.cuda.device(dev):
-        err = lib.srcv_lr_check(
-            best.data_ptr(), minS.data_ptr(), disp.data_ptr(), keep.data_ptr(), H, Wc,
-            num_disp, min_disp, max_diff, rows, int(out is not None),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(lib, err, "lr_check")
-    _build.count(launches, "lr_check")
+    _build.launch("srcv_lr_check", dev, best.data_ptr(), minS.data_ptr(), disp.data_ptr(),
+                  keep.data_ptr(), H, Wc, num_disp, min_disp, max_diff, rows,
+                  int(out is not None), counts=(launches, "lr_check"))
     return keep

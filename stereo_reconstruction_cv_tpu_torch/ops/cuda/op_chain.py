@@ -28,7 +28,8 @@ DTYPES = {torch.float32: 0, torch.int32: 1, torch.int16: 2, torch.uint16: 3,
 OPS = {"roll": 1, "add": 2, "min": 4}
 WIDTHS = (32, 64, 128, 256, 512)  # W = 32 lanes x 1..16 elements in registers
 
-# Kernel launches by this module's wrapper (read and reset by chip_smoke.py).
+# Kernel launches by this module's wrapper: read by the tests, chip_smoke.py
+# (which resets them) and utils/timing.graph_ms (which adds a graph's replays).
 launches = {"op_chain": 0}
 
 
@@ -66,15 +67,10 @@ def op_chain(x: torch.Tensor, ops: Sequence[str]) -> torch.Tensor:
         raise ValueError(f"x must be (H, W) with H >= 1 and W in {WIDTHS}, got {tuple(x.shape)}")
     if x.device.type == "cpu":
         return op_chain_plain(x, ops)
-    if x.device.type != "cuda":
-        raise ValueError(f"CUDA kernel called on a {x.device} tensor")
+    dev = _build.cuda_device("op_chain", x)
     x = x.contiguous()
     out = torch.empty_like(x)
     H, W = x.shape
-    lib = _build.kernels_library()
-    with torch.cuda.device(x.device):
-        err = lib.srcv_op_chain(x.data_ptr(), out.data_ptr(), H, W, DTYPES[x.dtype], bits,
-                                torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "op_chain")
-    _build.count(launches, "op_chain")
+    _build.launch("srcv_op_chain", dev, x.data_ptr(), out.data_ptr(), H, W, DTYPES[x.dtype], bits,
+                  counts=(launches, "op_chain"))
     return out

@@ -19,7 +19,8 @@ from stereo_reconstruction_cv_tpu_torch import _build
 DTYPES = {torch.uint8: 0, torch.float32: 1}
 CHANNELS = (1, 3)
 
-# Kernel launches by this module's wrapper (read and reset by chip_smoke.py).
+# Kernel launches by this module's wrapper: read by the tests, chip_smoke.py
+# (which resets them) and utils/timing.graph_ms (which adds a graph's replays).
 launches = {"remap": 0}
 
 
@@ -71,10 +72,7 @@ def remap_bilinear_cuda(img: torch.Tensor, src_map: torch.Tensor) -> torch.Tenso
     if src_map.dtype != torch.float32 or src_map.dim() != 3 or src_map.shape[2] != 2:
         raise ValueError(f"remap: map must be (Ho, Wo, 2) float32, got {src_map.dtype} "
                          f"{tuple(src_map.shape)}")
-    dev = img.device
-    if dev.type != "cuda" or src_map.device != dev:
-        raise ValueError(f"remap: image ({dev}) and map ({src_map.device}) must lie on "
-                         "one CUDA device")
+    dev = _build.cuda_device("remap", img, src_map)
     if not (img.is_contiguous() and src_map.is_contiguous()):
         raise ValueError("remap: image and map must be contiguous on CUDA")
     H, W = img.shape[:2]
@@ -83,13 +81,7 @@ def remap_bilinear_cuda(img: torch.Tensor, src_map: torch.Tensor) -> torch.Tenso
         raise ValueError(f"remap: sides of at most 2**30 - 1 px, got image {(H, W)}, "
                          f"map {(Ho, Wo)}")
     out = torch.empty((Ho, Wo, *img.shape[2:]), dtype=img.dtype, device=dev)
-    lib = _build.kernels_library()
-    with torch.cuda.device(dev):
-        err = lib.srcv_remap_bilinear(
-            img.data_ptr(), src_map.data_ptr(), out.data_ptr(), H, W, Ho, Wo,
-            img.shape[2] if img.dim() == 3 else 1, DTYPES[img.dtype],
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(lib, err, "remap")
-    _build.count(launches, "remap")
+    _build.launch("srcv_remap_bilinear", dev, img.data_ptr(), src_map.data_ptr(), out.data_ptr(),
+                  H, W, Ho, Wo, img.shape[2] if img.dim() == 3 else 1, DTYPES[img.dtype],
+                  counts=(launches, "remap"))
     return out

@@ -55,7 +55,8 @@ FUSED_DIR = (0, 1)
 
 _BIG = 1 << 29
 
-# Kernel launches by this module's wrappers (read and reset by chip_smoke.py).
+# Kernel launches by this module's wrappers: read by the tests, chip_smoke.py
+# (which resets them) and utils/timing.graph_ms (which adds a graph's replays).
 launches = {"sgm_path_sweep": 0, "sgm_path_sweep_carry": 0, "sgm_sweep_wta": 0,
             "sgm_sweep_sum": 0, "wta_volume": 0, "wta_packed": 0}
 
@@ -243,11 +244,21 @@ def u16(vol: torch.Tensor) -> torch.Tensor:
     return vol.to(torch.int32) & 0xFFFF
 
 
-def _require_cuda_cost(C: torch.Tensor) -> None:
-    if C.device.type != "cuda":
-        raise ValueError(f"CUDA kernel called on a {C.device} tensor")
+def _require_cuda_cost(what: str, C: torch.Tensor) -> torch.device:
+    dev = _build.cuda_device(what, C)
     if C.dtype != torch.int16 or C.dim() != 3 or not C.is_contiguous():
         raise ValueError("C must be a contiguous (H, W, D) int16 CUDA tensor")
+    return dev
+
+
+def _check_deltas(C: torch.Tensor, vols: Sequence[torch.Tensor]) -> None:
+    """Raise unless every u16 delta volume is laid out as C is for the
+    kernels, which the plain versions require too."""
+    for v in vols:
+        if (v.shape != C.shape or v.dtype != torch.int16 or v.device != C.device
+                or not v.is_contiguous()):
+            raise ValueError("delta volumes must be contiguous int16 tensors of C's shape "
+                             "and device")
 
 
 def lanes_k(num_disp: int) -> int:
@@ -286,7 +297,7 @@ def path_sweep_cuda(C: torch.Tensor, acc: torch.Tensor, dx: int, dy: int,
     the rows continue a taller frame: carry_in (W, D) int32 is L (or lam) of
     the row before the first, carry_out receives lam of the last row, both
     in path order; it counts as sgm_path_sweep_carry."""
-    _require_cuda_cost(C)
+    dev = _require_cuda_cost("sgm_path_sweep", C)
     if acc.shape != C.shape or acc.dtype != torch.int16 or not acc.is_contiguous():
         raise ValueError("acc must be a contiguous int16 tensor of C's shape")
     carried = carry_in is not None or carry_out is not None
@@ -294,16 +305,11 @@ def path_sweep_cuda(C: torch.Tensor, acc: torch.Tensor, dx: int, dy: int,
         _check_carries(C, dy, carry_in, carry_out)
     H, W, D = C.shape
     vec = sweep_vector_path(D, C.data_ptr(), acc.data_ptr())
-    lib = _build.kernels_library()
-    with torch.cuda.device(C.device):
-        err = lib.srcv_sgm_path_sweep(
-            C.data_ptr(), acc.data_ptr(), None if carry_in is None else carry_in.data_ptr(),
-            None if carry_out is None else carry_out.data_ptr(), H, W, D, dx, dy, p1, p2,
-            int(accumulate), int(vec), torch.cuda.current_stream().cuda_stream,
-        )
-    name = "sgm_path_sweep_carry" if carried else "sgm_path_sweep"
-    _build.check(lib, err, name)
-    _build.count(launches, name)
+    _build.launch("srcv_sgm_path_sweep", dev, C.data_ptr(), acc.data_ptr(),
+                  None if carry_in is None else carry_in.data_ptr(),
+                  None if carry_out is None else carry_out.data_ptr(), H, W, D, dx, dy, p1, p2,
+                  int(accumulate), int(vec),
+                  counts=(launches, "sgm_path_sweep_carry" if carried else "sgm_path_sweep"))
 
 
 def path_sweep(C: torch.Tensor, acc: torch.Tensor, dx: int, dy: int, p1: int, p2: int,
@@ -370,16 +376,14 @@ def sweep_sum_cuda(C: torch.Tensor, vols: Sequence[torch.Tensor], nd: int, p1: i
     """Kernel: the last direction's sweep storing S = nd*C + sum(vols) + its
     deltas, (H, W, D) int32, in a new tensor or added onto `out`. vols: zero,
     one or two u16 delta volumes."""
-    _require_cuda_cost(C)
+    dev = _require_cuda_cost("sgm_sweep_sum", C)
     if len(vols) > 2:
         raise ValueError(f"sweep_sum_cuda takes at most two delta volumes, got {len(vols)}")
     if tuple(direction) not in DIRS_8:
         raise ValueError(f"direction must be a unit step (a member of DIRS_8), got {direction}")
-    for ds in vols:
-        if ds.shape != C.shape or ds.dtype != torch.int16 or not ds.is_contiguous():
-            raise ValueError("delta volumes must be contiguous int16 tensors of C's shape")
+    _check_deltas(C, vols)
     if out is None:
-        S = torch.empty(C.shape, dtype=torch.int32, device=C.device)
+        S = torch.empty(C.shape, dtype=torch.int32, device=dev)
     elif out.shape != C.shape or out.dtype != torch.int32 or not out.is_contiguous():
         raise ValueError("out must be a contiguous int32 tensor of C's shape")
     else:
@@ -389,14 +393,9 @@ def sweep_sum_cuda(C: torch.Tensor, vols: Sequence[torch.Tensor], nd: int, p1: i
     vec = (sweep_vector_path(D, *(t.data_ptr() for t in (C, *vols)))
            and S.data_ptr() % align_s == 0)
     ptrs = [v.data_ptr() for v in vols] + [None] * (2 - len(vols))
-    lib = _build.kernels_library()
-    with torch.cuda.device(C.device):
-        err = lib.srcv_sgm_sweep_sum(
-            C.data_ptr(), *ptrs, S.data_ptr(), H, W, D, direction[0], direction[1], nd,
-            p1, p2, int(out is not None), int(vec), torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(lib, err, "sgm_sweep_sum")
-    _build.count(launches, "sgm_sweep_sum")
+    _build.launch("srcv_sgm_sweep_sum", dev, C.data_ptr(), *ptrs, S.data_ptr(), H, W, D,
+                  direction[0], direction[1], nd, p1, p2, int(out is not None), int(vec),
+                  counts=(launches, "sgm_sweep_sum"))
     return S
 
 
@@ -406,7 +405,7 @@ def sgm_aggregate_cuda(C: torch.Tensor, p1: int, p2: int,
     (H, W, D) int32. Each pass of aggregate_passes sweeps its groups into
     u16 volumes, then sgm_sweep_sum sweeps its fused direction and writes S
     (the first pass) or adds onto it. 8 paths: 7 path sweeps + 1."""
-    _require_cuda_cost(C)
+    _require_cuda_cost("sgm_aggregate", C)
     directions = list(directions)
     if not directions:
         return torch.zeros(C.shape, dtype=torch.int32, device=C.device)
@@ -441,33 +440,25 @@ def sweep_wta_cuda(C: torch.Tensor, vols: Sequence[torch.Tensor],
     """Kernel: the last direction's sweep fused with WTA over
     S = nd*C + sum(vols) + its deltas -> (disp, valid, best, minS).
     vols: the one or two u16 delta volumes of path_deltas_cuda."""
-    _require_cuda_cost(C)
+    dev = _require_cuda_cost("sgm_sweep_wta", C)
     if not 1 <= len(vols) <= 2:
         raise ValueError(f"sweep_wta_cuda takes one or two delta volumes, got {len(vols)}")
     if tuple(direction) not in DIRS_8:
         raise ValueError(f"direction must be a unit step (a member of DIRS_8), got {direction}")
-    for ds in vols:
-        if ds.shape != C.shape or ds.dtype != torch.int16 or not ds.is_contiguous():
-            raise ValueError("delta volumes must be contiguous int16 tensors of C's shape")
+    _check_deltas(C, vols)
     dsa, dsb = vols[0], (vols[1] if len(vols) > 1 else None)
     H, W, D = C.shape
     vec = sweep_vector_path(D, *(t.data_ptr() for t in (C, *vols)))
-    dev = C.device
     disp = torch.empty((H, W), dtype=torch.float32, device=dev)
     valid = torch.empty((H, W), dtype=torch.bool, device=dev)
     best = torch.empty((H, W), dtype=torch.int32, device=dev)
     minS = torch.empty((H, W), dtype=torch.int32, device=dev)
     lg = _pow2_at_least(D).bit_length() - 1
-    lib = _build.kernels_library()
-    with torch.cuda.device(dev):
-        err = lib.srcv_sgm_sweep_wta(
-            C.data_ptr(), dsa.data_ptr(), None if dsb is None else dsb.data_ptr(),
-            disp.data_ptr(), valid.data_ptr(), best.data_ptr(), minS.data_ptr(),
-            H, W, D, direction[0], direction[1], nd, p1, p2, uniqueness_ratio,
-            min_disp, lg, int(vec), torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(lib, err, "sgm_sweep_wta")
-    _build.count(launches, "sgm_sweep_wta")
+    _build.launch("srcv_sgm_sweep_wta", dev, C.data_ptr(), dsa.data_ptr(),
+                  None if dsb is None else dsb.data_ptr(), disp.data_ptr(), valid.data_ptr(),
+                  best.data_ptr(), minS.data_ptr(), H, W, D, direction[0], direction[1], nd,
+                  p1, p2, uniqueness_ratio, min_disp, lg, int(vec),
+                  counts=(launches, "sgm_sweep_wta"))
     return disp, valid, best, minS
 
 
@@ -490,7 +481,7 @@ def sgm_wta(C: torch.Tensor, p1: int, p2: int, num_directions: int = 8,
     check_sgm_bounds(p1, p2, D, num_directions)
     if C.device.type == "cpu":
         return sgm_wta_plain(C, p1, p2, num_directions, uniqueness_ratio, min_disp)
-    _require_cuda_cost(C)
+    _require_cuda_cost("sgm_wta", C)
     vols = path_deltas_cuda(C, num_directions, p1, p2)
     return sweep_wta_cuda(C, vols, num_directions, p1, p2, uniqueness_ratio, min_disp)
 
@@ -512,9 +503,7 @@ def _check_wta_inputs(C: torch.Tensor, vols: Sequence[torch.Tensor],
         raise ValueError(f"D={C.shape[2]} outside [1, 512]")
     if not 1 <= len(vols) <= 2:
         raise ValueError(f"the WTA pass takes one or two delta volumes, got {len(vols)}")
-    for v in vols:
-        if v.shape != C.shape or v.dtype != torch.int16 or v.device != C.device:
-            raise ValueError("delta volumes must be int16 tensors of C's shape and device")
+    _check_deltas(C, vols)
     if not 0 <= uniqueness_ratio <= 100:
         raise ValueError(f"uniqueness_ratio={uniqueness_ratio} outside [0, 100]")
     return 5 if len(vols) == 1 else 8
@@ -545,21 +534,15 @@ def wta_packed_plain(C: torch.Tensor, vols: Sequence[torch.Tensor],
 
 
 def _launch_wta(C, vols, nd, uniqueness_ratio, min_disp, bh, bw, bfly, shfl, outs):
-    if C.device.type != "cuda":
-        raise ValueError(f"CUDA kernel called on a {C.device} tensor")
-    if not C.is_contiguous() or not all(v.is_contiguous() for v in vols):
-        raise ValueError("C and the delta volumes must be contiguous")
+    dev = _build.cuda_device("wta", C)
+    if not C.is_contiguous():
+        raise ValueError("C must be contiguous")
     A, B, D = C.shape
     dsb = vols[1].data_ptr() if len(vols) > 1 else None
     ptrs = [None if t is None else t.data_ptr() for t in outs]
-    lib = _build.kernels_library()
-    with torch.cuda.device(C.device):
-        err = lib.srcv_wta(
-            C.data_ptr(), vols[0].data_ptr(), dsb, A, B, D, nd, uniqueness_ratio,
-            min_disp, _pow2_at_least(D).bit_length() - 1, bh, bw, int(bfly), int(shfl),
-            *ptrs, torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(lib, err, "wta")
+    _build.launch("srcv_wta", dev, C.data_ptr(), vols[0].data_ptr(), dsb, A, B, D, nd,
+                  uniqueness_ratio, min_disp, _pow2_at_least(D).bit_length() - 1, bh, bw,
+                  int(bfly), int(shfl), *ptrs)
 
 
 def wta_volume(C: torch.Tensor, vols: Sequence[torch.Tensor],

@@ -37,7 +37,8 @@ import torch
 
 from stereo_reconstruction_cv_tpu_torch import _build
 
-# Kernel launches by this module's wrappers (read and reset by chip_smoke.py).
+# Kernel launches by this module's wrappers: read by the tests, chip_smoke.py
+# (which resets them) and utils/timing.graph_ms (which adds a graph's replays).
 launches = {"speckle_labels": 0, "speckle_keep": 0}
 
 MAX_ROUNDS = 64
@@ -167,13 +168,6 @@ def _check_maps(disp: torch.Tensor, valid: torch.Tensor) -> None:
         raise ValueError(f"{disp.numel()} pixels: int32 labels hold at most 2^31 - 2")
 
 
-def _require_cuda(*ts: torch.Tensor) -> torch.device:
-    dev = ts[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in ts):
-        raise ValueError("speckle kernels: inputs must all lie on one CUDA device")
-    return dev
-
-
 def _rows(t: torch.Tensor):
     """(t, its row stride in elements) where t's elements within a row are
     adjacent, as in a column slice of a wider map; else a contiguous copy."""
@@ -185,19 +179,13 @@ def _rows(t: torch.Tensor):
 def speckle_labels_cuda(disp: torch.Tensor, valid: torch.Tensor, max_diff: float) -> torch.Tensor:
     """Kernel: the flood's fixpoint label map (H, W) int32, exactly."""
     _check_maps(disp, valid)
-    dev = _require_cuda(disp, valid)
+    dev = _build.cuda_device("speckle_labels", disp, valid)
     H, W = disp.shape
     disp, ds = _rows(disp.to(torch.float32))
     valid, vs = _rows(valid)
     labels = torch.empty((H, W), dtype=torch.int32, device=dev)
-    lib = _build.kernels_library()
-    with torch.cuda.device(dev):
-        err = lib.srcv_speckle_labels(
-            disp.data_ptr(), valid.data_ptr(), labels.data_ptr(), H, W, ds, vs,
-            float(max_diff), torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(lib, err, "speckle_labels")
-    _build.count(launches, "speckle_labels")
+    _build.launch("srcv_speckle_labels", dev, disp.data_ptr(), valid.data_ptr(), labels.data_ptr(),
+                  H, W, ds, vs, float(max_diff), counts=(launches, "speckle_labels"))
     return labels
 
 
@@ -223,22 +211,19 @@ def speckle_keep_cuda(labels: torch.Tensor, valid: torch.Tensor, max_size: int) 
     if labels.dtype != torch.int32:
         raise ValueError(f"labels must be int32, got {labels.dtype}")
     _check_maps(labels, valid)
-    dev = _require_cuda(labels, valid)
+    dev = _build.cuda_device("speckle_keep", labels, valid)
     H, W = labels.shape
     labels = labels.contiguous()
     valid, vs = _rows(valid)
     cells = count_cells(dev, H * W)
     keep = torch.empty((H, W), dtype=torch.bool, device=dev)
-    lib = _build.kernels_library()
-    with torch.cuda.device(dev):
-        err = lib.srcv_speckle_keep(
-            labels.data_ptr(), valid.data_ptr(), cells.data_ptr(), keep.data_ptr(),
-            H, W, vs, int(max_size), torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
+    try:
+        _build.launch("srcv_speckle_keep", dev, labels.data_ptr(), valid.data_ptr(),
+                      cells.data_ptr(), keep.data_ptr(), H, W, vs, int(max_size),
+                      counts=(launches, "speckle_keep"))
+    except RuntimeError:
         del _cells[(dev, H * W)]  # a pass may not have run: the cells are no longer zero
-    _build.check(lib, err, "speckle_keep")
-    _build.count(launches, "speckle_keep")
+        raise
     return keep
 
 

@@ -17,6 +17,12 @@ beside the whole-frame sgbm_disparity: sgbm_disparity_auto, which row-tiles
 (sgbm_disparity_tiled) a frame that does not fit the card's free memory, and
 sgbm_disparity_fast, the reference's coarse-to-fine path.
 
+sgbm_disparity's stages are public so that the exact row-sharded SGBM
+(parallel/sgm_sharded.py) runs the same frame around its own carried sweeps:
+``validate``, ``sgbm_cost`` (planes + cost volume) and ``sgbm_post`` (LR
+check into valid, the margin padded back). ``margin`` is the one home of the
+left margin's width x0 and its disparity, which the speckle filters also read.
+
 Every function runs on the device of the tensors it is given: CUDA tensors go
 through the kernels, CPU tensors through the plain versions beside them.
 ``SGBMConfig.backend`` selects TPU code paths and is ignored here; the scans
@@ -42,7 +48,8 @@ from stereo_reconstruction_cv_tpu_torch.ops.cuda.speckle import speckle_filter
 from stereo_reconstruction_cv_tpu_torch.utils.profiling import span
 
 
-def _validate(H: int, W: int, cfg: SGBMConfig) -> None:
+def validate(H: int, W: int, cfg: SGBMConfig) -> None:
+    """Raise ValueError on a frame size or config the port's SGBM does not take."""
     if cfg.speckle_backend not in ("propagate", "exact"):
         raise ValueError(f"speckle_backend={cfg.speckle_backend!r}: 'propagate' or 'exact'")
     if cfg.scan_chunk is not None:
@@ -52,11 +59,9 @@ def _validate(H: int, W: int, cfg: SGBMConfig) -> None:
         )
     if cfg.min_disparity < 0:
         raise ValueError(f"min_disparity={cfg.min_disparity} must be >= 0")
-    if W <= cfg.min_disparity + cfg.num_disparities:
-        raise ValueError(
-            f"width {W} must exceed min_disparity + num_disparities = "
-            f"{cfg.min_disparity + cfg.num_disparities}"
-        )
+    x0, _ = margin(cfg)
+    if W <= x0:
+        raise ValueError(f"width {W} must exceed min_disparity + num_disparities = {x0}")
     check_cost_bounds(cfg.block_size, cfg.pre_filter_cap)
     check_sgm_bounds(cfg.p1, cfg.p2, cfg.num_disparities, cfg.num_directions)
 
@@ -78,6 +83,35 @@ def cost_planes(left: torch.Tensor, right: torch.Tensor, cap: int):
     return planes
 
 
+def margin(cfg: SGBMConfig):
+    """The left margin x < x0 = min_disparity + num_disparities (OpenCV's
+    minX1), where no disparity is computed -> (x0, the disparity its pixels
+    hold: min_disparity - 1). They are invalid, so never kept."""
+    return cfg.min_disparity + cfg.num_disparities, float(cfg.min_disparity - 1)
+
+
+def pad_margin(t: torch.Tensor, x0: int, value=False) -> torch.Tensor:
+    """(..., W - x0) -> (..., W): the margin's columns put back on the left."""
+    return torch.nn.functional.pad(t, (x0, 0), value=value)
+
+
+def sgbm_cost(left: torch.Tensor, right: torch.Tensor, cfg: SGBMConfig) -> torch.Tensor:
+    """The cost stage: cost_planes + cost_volume -> C (H, W - x0, D) int16."""
+    return cost_volume(*cost_planes(left, right, cfg.pre_filter_cap), cfg.num_disparities,
+                       cfg.min_disparity, cfg.block_size)
+
+
+def sgbm_post(disp: torch.Tensor, valid: torch.Tensor, best: torch.Tensor, minS: torch.Tensor,
+              cfg: SGBMConfig):
+    """The post stage short of the speckle filter: the LR check ANDed into
+    valid in place, then the margin padded back -> full-width (disp, valid)."""
+    if cfg.disp12_max_diff >= 0:
+        lr_check_maps(best, minS, disp, cfg.num_disparities, cfg.min_disparity,
+                      cfg.disp12_max_diff, out=valid)
+    x0, pad = margin(cfg)
+    return pad_margin(disp, x0, pad), pad_margin(valid, x0)
+
+
 def sgbm_disparity(left: torch.Tensor, right: torch.Tensor, cfg: SGBMConfig):
     """Full SGBM: grayscale (H, W) uint8 pair -> (float disparity, valid).
 
@@ -90,23 +124,16 @@ def sgbm_disparity(left: torch.Tensor, right: torch.Tensor, cfg: SGBMConfig):
         H, W = left.shape
         if right.shape != (H, W) or right.device != left.device:
             raise ValueError("left and right must share one (H, W) shape and device")
-        _validate(H, W, cfg)
-        x0 = cfg.min_disparity + cfg.num_disparities
+        validate(H, W, cfg)
         with span("sgbm.cost"):
-            planes = cost_planes(left, right, cfg.pre_filter_cap)
-            C = cost_volume(*planes, cfg.num_disparities, cfg.min_disparity, cfg.block_size)
+            C = sgbm_cost(left, right, cfg)
         with span("sgbm.aggregate"):
             disp, valid, best, minS = sgm_wta(
                 C, cfg.p1, cfg.p2, cfg.num_directions, cfg.uniqueness_ratio, cfg.min_disparity
             )
         del C
         with span("sgbm.post"):
-            if cfg.disp12_max_diff >= 0:
-                lr_check_maps(best, minS, disp, cfg.num_disparities, cfg.min_disparity,
-                              cfg.disp12_max_diff, out=valid)  # valid &= keep, in place
-            # Pad the invalid left margin back to full width.
-            disp = torch.nn.functional.pad(disp, (x0, 0), value=float(cfg.min_disparity - 1))
-            valid = torch.nn.functional.pad(valid, (x0, 0), value=False)
+            disp, valid = sgbm_post(disp, valid, best, minS, cfg)
             if cfg.speckle_window_size > 0:
                 valid = _speckle(disp, valid, cfg)
         return disp, valid
@@ -122,22 +149,22 @@ def filter_speckles_host(disp: torch.Tensor, valid: torch.Tensor,
 
 def _speckle(disp: torch.Tensor, valid: torch.Tensor, cfg: SGBMConfig) -> torch.Tensor:
     """Keep mask of cfg's speckle backend: "exact" on the host, "propagate"
-    on the inputs' device. The left margin x < min_disp + num_disp is invalid
-    by construction, so "propagate" labels only the columns right of it and
+    on the inputs' device. The left margin (margin) is invalid by
+    construction, so "propagate" labels only the columns right of it and
     pads the margin back as not kept."""
     if cfg.speckle_backend == "exact":
         return filter_speckles_host(disp, valid, cfg.speckle_window_size,
                                     float(cfg.speckle_range))
-    x0 = cfg.min_disparity + cfg.num_disparities
+    x0, _ = margin(cfg)
     keep = speckle_filter(disp[:, x0:], valid[:, x0:], cfg.speckle_window_size,
                           float(cfg.speckle_range))
-    return torch.nn.functional.pad(keep, (x0, 0), value=False)
+    return pad_margin(keep, x0)
 
 
 def frame_bytes(H: int, W: int, cfg: SGBMConfig) -> int:
     """Device bytes one frame's SGBM holds at its peak: the int16 cost volume,
     the u16 delta volumes (one for 5 directions, two for 8) and the planes."""
-    cells = H * max(W - cfg.min_disparity - cfg.num_disparities, 0) * cfg.num_disparities
+    cells = H * max(W - margin(cfg)[0], 0) * cfg.num_disparities
     volumes = 2 if cfg.num_directions == 8 else 1
     return cells * 2 * (1 + volumes) + 64 * H * W
 
@@ -242,7 +269,7 @@ def sgbm_disparity_fast(left: torch.Tensor, right: torch.Tensor, cfg: SGBMConfig
                       speckle_window_size=0)
     lh, rh = box2(left), box2(right)
     try:
-        _validate(*lh.shape, cfg_h)
+        validate(*lh.shape, cfg_h)
     except ValueError as e:
         raise ValueError(f"sgbm_disparity_fast: the half-resolution level {tuple(lh.shape)} "
                          f"with {cfg_h.num_disparities} disparities: {e}") from None

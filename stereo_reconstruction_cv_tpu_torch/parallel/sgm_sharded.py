@@ -15,22 +15,25 @@ across rows, and two modes handle it:
   reference's docstring says so too, but its ``ppermute`` hands the edge
   shards ``halo`` zero rows: reference fault 12, ROADMAP.md C.)
 - exact (``exact=True``, ``sharded_sgbm_disparity_exact``): the same maps as
-  the single-device ``sgbm_disparity``, bit for bit, on any mesh. The cost
-  volume of each shard is computed on its rows plus the Sobel and box halo
+  the single-device ``sgbm_disparity``, bit for bit, on any mesh, from the
+  same stages of ``ops.disparity`` around sweeps of its own: ``validate``;
+  ``sgbm_cost`` on each shard's rows plus the Sobel and box halo
   (``cost_halo``) of each interior neighbour; the vertical and diagonal
   sweeps hand their last row's DP carry to the next shard along the path
   (``sgm_path_sweep``'s carry, ``ops/cuda/sgm.py:path_sweep_cuda``); the last
   direction, fused with WTA, is a horizontal one (``EXACT_FUSED``), so it
-  needs no carry. The handoffs go out in wavefront order: direction k of
-  shard s is issued with direction k + 1 of the shard before it, so with a
-  device per shard every device has a sweep to run while its carry travels.
+  needs no carry; then ``sgbm_post`` (LR check, margin). The handoffs go out
+  in wavefront order: direction k of shard s is issued with direction k + 1
+  of the shard before it, so with a device per shard every device has a
+  sweep to run while its carry travels.
 
 The speckle filter runs sharded too (``sharded_speckle_filter``): each
 shard labels its rows (``speckle_labels``) and counts its pieces; the pieces
 that meet across a shard boundary are joined by the same edge rule on the
 boundary rows, and their summed sizes go back through each shard's labels.
 The result equals the single-device filter exactly; counts are int64 (the
-reference's 7-bit count field is reference fault 3).
+reference's 7-bit count field is reference fault 3). With SGBM it runs right
+of ``ops.disparity.margin``, as the single-device filter does.
 
 Inputs are (B, H, W) uint8 tensors, placed with
 ``mesh.batch_row_sharding`` (or already ``Sharded`` that way); outputs are
@@ -50,8 +53,6 @@ from stereo_reconstruction_cv_tpu_torch.config import SGBMConfig
 from stereo_reconstruction_cv_tpu_torch.ops import disparity as DP
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import sgm as SK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import speckle as SPK
-from stereo_reconstruction_cv_tpu_torch.ops.cuda.cost import cost_volume
-from stereo_reconstruction_cv_tpu_torch.ops.cuda.lr import lr_check_maps
 from stereo_reconstruction_cv_tpu_torch.parallel.mesh import (
     Mesh,
     Sharded,
@@ -141,18 +142,13 @@ def _exact_frame(ls: List[torch.Tensor], rs: List[torch.Tensor], cfg: SGBMConfig
     maps' rows exactly (module docstring)."""
     ns = len(ls)
     h = ls[0].shape[0]
-    D, md = cfg.num_disparities, cfg.min_disparity
-    x0 = md + D
     hb = cost_halo(cfg.block_size)
     if ns > 1 and h < hb:
         raise ValueError(f"shards of {h} rows: the exact cost volume needs {hb} rows of "
                          "each neighbour")
     le, tops = _extend(ls, hb)
     re, _ = _extend(rs, hb)
-    Cs = []
-    for a, b, t in zip(le, re, tops):
-        C = cost_volume(*DP.cost_planes(a, b, cfg.pre_filter_cap), D, md, cfg.block_size)
-        Cs.append(C[t:t + h])
+    Cs = [DP.sgbm_cost(a, b, cfg)[t:t + h] for a, b, t in zip(le, re, tops)]
     groups = [g for g in SK.delta_groups(cfg.num_directions, EXACT_FUSED) if g]
     vols = [[torch.empty_like(C) for _ in groups] for C in Cs]
     # Wavefront order: direction k of the shard at position p along the path
@@ -175,13 +171,12 @@ def _exact_frame(ls: List[torch.Tensor], rs: List[torch.Tensor], cfg: SGBMConfig
         written.add((j, gi))
     disps, valids = [], []
     for j in range(ns):
-        disp, valid, best, minS = SK.sweep_wta(Cs[j], vols[j], cfg.num_directions, cfg.p1,
-                                               cfg.p2, cfg.uniqueness_ratio, md, EXACT_FUSED)
+        maps = SK.sweep_wta(Cs[j], vols[j], cfg.num_directions, cfg.p1, cfg.p2,
+                            cfg.uniqueness_ratio, cfg.min_disparity, EXACT_FUSED)
         Cs[j] = vols[j] = None
-        if cfg.disp12_max_diff >= 0:
-            lr_check_maps(best, minS, disp, D, md, cfg.disp12_max_diff, out=valid)
-        disps.append(torch.nn.functional.pad(disp, (x0, 0), value=float(md - 1)))
-        valids.append(torch.nn.functional.pad(valid, (x0, 0), value=False))
+        disp, valid = DP.sgbm_post(*maps, cfg)
+        disps.append(disp)
+        valids.append(valid)
     return disps, valids
 
 
@@ -191,7 +186,7 @@ def sharded_sgbm_disparity_exact(mesh: Mesh, left, right, cfg: SGBMConfig):
     vertical and diagonal sweeps, a horizontal fused WTA, the LR check and
     the sharded speckle filter."""
     L, R = _on_mesh(mesh, left), _on_mesh(mesh, right)
-    DP._validate(L.shape[1], L.shape[2], cfg)
+    DP.validate(L.shape[1], L.shape[2], cfg)
     disp, valid = _by_frame(mesh, lambda ls, rs: _exact_frame(ls, rs, cfg), L, R)
     if cfg.speckle_window_size > 0:
         valid = _sharded_speckle_with_margin(mesh, disp, valid, cfg)
@@ -340,8 +335,8 @@ def _speckle_batch(mesh: Mesh, disp: Sharded, valid: Sharded, max_size: int, max
         with span("mesh.speckle.join"):
             nodes, total = _join_sizes(_to_host(recs))
             _put_sizes([s for row in shards for s in row], nodes, total, b * n)
-    blocks = [[torch.nn.functional.pad(v & (sz[lab] > max_size), (x0, 0), value=False)
-               for _, v, lab, sz, _ in row] for row in shards]
+    blocks = [[DP.pad_margin(v & (sz[lab] > max_size), x0) for _, v, lab, sz, _ in row]
+              for row in shards]
     return Sharded(batch_row_sharding(mesh), blocks, valid.shape)
 
 
@@ -359,8 +354,8 @@ def sharded_speckle_filter(mesh: Mesh, disp, valid, max_speckle_size: int = 100,
 
 def _sharded_speckle_with_margin(mesh: Mesh, disp: Sharded, valid: Sharded,
                                  cfg: SGBMConfig) -> Sharded:
-    """The sharded speckle filter on the columns right of the margin x <
-    min_disp + num_disp (invalid by construction), as ops.disparity._speckle
+    """The sharded speckle filter on the columns right of the margin
+    (ops.disparity.margin; invalid by construction), as ops.disparity._speckle
     slices them; the margin comes back not kept."""
     return _speckle_batch(mesh, disp, valid, cfg.speckle_window_size, float(cfg.speckle_range),
-                          cfg.min_disparity + cfg.num_disparities)
+                          DP.margin(cfg)[0])

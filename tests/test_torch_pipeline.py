@@ -302,6 +302,26 @@ def test_port_and_chip_smoke_import_nothing_of_jax_or_the_reference():
     assert not bad, bad
 
 
+def test_sharded_sgbm_runs_the_single_device_stages_not_its_own():
+    """parallel/sgm_sharded.py reaches the cost and post stages through
+    ops.disparity's public stages: it imports neither kernel module of those
+    stages and reads no private name of ops.disparity."""
+    path = ROOT / "stereo_reconstruction_cv_tpu_torch" / "parallel" / "sgm_sharded.py"
+    bad = [f"{line}: imports {mod}" for line, mod in _imports(path)
+           if mod.endswith(("ops.cuda.cost", "ops.cuda.lr"))]
+    tree = ast.parse(path.read_text())
+    bad += [f"{node.lineno}: from ops.cuda import {a.name}" for node in ast.walk(tree)
+            if isinstance(node, ast.ImportFrom) and (node.module or "").endswith("ops.cuda")
+            for a in node.names if a.name in ("cost", "lr")]
+    bad += [f"{node.lineno}: DP.{node.attr}" for node in ast.walk(tree)
+            if isinstance(node, ast.Attribute) and isinstance(node.value, ast.Name)
+            and node.value.id == "DP" and node.attr.startswith("_")]
+    assert not bad, bad
+    uses = {node.attr for node in ast.walk(tree) if isinstance(node, ast.Attribute)
+            and isinstance(node.value, ast.Name) and node.value.id == "DP"}
+    assert {"validate", "sgbm_cost", "sgbm_post", "margin", "sgbm_disparity"} <= uses
+
+
 def test_port_sgbm_config_equals_the_reference_field_by_field():
     ref = SGBMConfig()
     ours = port_config.SGBMConfig()
