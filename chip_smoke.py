@@ -22,7 +22,10 @@ Phases:
                sweeps + fused sweep with each of sgm.py's FUSED_CANDIDATES last;
                the remap kernel on both cameras of a 1.2-degree raw rig at
                720p and 4K, EQUAL to its plain version, its pair's time (graph
-               replay, maps beyond the L2 cache) against its byte bound
+               replay, maps beyond the L2 cache) against its byte bound;
+               the points layer's reprojection and compaction kernels at
+               720p and 4K (tools/probe_cloud.measure), EQUAL to the plain
+               ops, their times against their byte bounds
   4. 720p      config 2 as the reference runs it: sgbm_disparity, 128
                disparities, 8 paths, LR check, device speckle (the default
                "propagate"), and the same with the host speckle (equal masks);
@@ -202,6 +205,12 @@ KERNELS = {
     # Replaces no TPU kernel: the reference remaps with XLA gathers.
     "remap": ("stereo_reconstruction_cv_tpu_torch/csrc/remap.cu",
               "none (stereo_reconstruction_cv_tpu/ops/rectify.py remap_bilinear: XLA gathers)"),
+    # Replace no TPU kernel: the reference reprojects with XLA ops and
+    # compacts each cloud on the host.
+    "reproject": ("stereo_reconstruction_cv_tpu_torch/csrc/cloud.cu",
+                  "none (stereo_reconstruction_cv_tpu/ops/geometry.py reproject_image_to_3d: XLA ops)"),
+    "compact": ("stereo_reconstruction_cv_tpu_torch/csrc/cloud.cu",
+                "none (the reference compacts each cloud on the host)"),
 }
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense rates at 700 W):
 # HBM bytes/s, and float32 operations/s outside the tensor cores. The latter
@@ -243,6 +252,10 @@ OPS_PER = {
     # per pixel: floor, fraction and 1 - fraction per axis (6), four weights,
     # four products and three sums (11), rounding (1)
     "remap": 18,
+    # per pixel: 12 products and sums, the W == 0 test, three divisions
+    "reproject": 16,
+    # per pixel: the mask (compare, two ands, three finite tests), its rank
+    "compact": 7,
 }
 WTA_VARIANTS = "shipped,shipped2,nat,2nat,nat:8:128,8:128:dot,8:128:bfly,8:512:dot,8:512:bfly"
 SPECKLE_DIFF = 5.0  # max_diff of the synthetic speckle maps
@@ -857,10 +870,12 @@ def bench_phase(torch, dev, main_path, dense, speckle):
                                                               render_pair)
 
     others = tuple(k for k in KERNELS if k not in dense + speckle)
+    cloud = ("remap", "reproject")  # config 3 rectifies; 3 and 5 reproject, none compacts
     expect = {1: (("cost_volume",), tuple(k for k in KERNELS if k != "cost_volume"), True),
               2: (dense + speckle, others),
-              3: (dense + speckle + ("remap",), tuple(k for k in others if k != "remap")),
-              4: ((), tuple(KERNELS)), 5: (dense, speckle + others)}
+              3: (dense + speckle + cloud, tuple(k for k in others if k not in cloud)),
+              4: ((), tuple(KERNELS)),
+              5: (dense + ("reproject",), speckle + tuple(k for k in others if k != "reproject"))}
     buf = io.StringIO()
     t0 = time.perf_counter()
     try:
@@ -919,13 +934,14 @@ def bench_phase(torch, dev, main_path, dense, speckle):
                                  row):
                 save_image(path, img.cpu().numpy(), quality=B.JPEG_QUALITY)
             pairs.append(row)
-        with main_path("stream_reconstruct (3 4K JPEG pairs)", dense, speckle):
+        with main_path("stream_reconstruct (3 4K JPEG pairs)", dense + ("reproject", "compact"),
+                       speckle):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             clouds = stream_reconstruct(pairs, res.Q.numpy(), cfg, os.path.join(td, "out"),
                                         batch_size=2, prefetch=2, decoder="nvjpeg")
             wall = time.perf_counter() - t0
-        Q = res.Q.to(device=dev, dtype=torch.float32)
+        Q = res.Q.to(torch.float32)  # on the host: the reprojection takes its values
         worst, n_total = 0.0, 0
         for row, path in zip(pairs, clouds):
             lr = [torch.from_numpy(native.load_image(p, True, "nvjpeg")).to(dev) for p in row]
@@ -1430,6 +1446,7 @@ def main() -> int:
         from stereo_reconstruction_cv_tpu_torch.ops import geometry as G
         from stereo_reconstruction_cv_tpu_torch.ops import matching as MT
         from stereo_reconstruction_cv_tpu_torch.ops import rectify as RC
+        from stereo_reconstruction_cv_tpu_torch.ops.cuda import cloud as CL
         from stereo_reconstruction_cv_tpu_torch.ops.cuda import cost as CK
         from stereo_reconstruction_cv_tpu_torch.ops.cuda import lr as LK
         from stereo_reconstruction_cv_tpu_torch.ops.cuda import op_chain as OC
@@ -1437,7 +1454,7 @@ def main() -> int:
         from stereo_reconstruction_cv_tpu_torch.ops.cuda import sgm as SK
         from stereo_reconstruction_cv_tpu_torch.ops.cuda import speckle as SPK
         from stereo_reconstruction_cv_tpu_torch.pipeline import stages
-        from stereo_reconstruction_cv_tpu_torch.tools import micro_i16, micro_wta
+        from stereo_reconstruction_cv_tpu_torch.tools import micro_i16, micro_wta, probe_cloud
         from stereo_reconstruction_cv_tpu_torch.tools.probe_sweep import textured_pair
         from stereo_reconstruction_cv_tpu_torch.utils.synth import (K_4K, SCENE_AXIS, SCENE_DEG,
                                                                   SCENE_T, SEED, pose_errors,
@@ -1788,6 +1805,19 @@ def main() -> int:
                           torch.from_numpy(valid_np).to(dev), (20, 100))
         results["remap"].update(check_remap(720, 1280))
         check_remap(2160, 3840)
+        for H, W, D in probe_cloud.SIZES:  # 720p first: the kernels line's
+            m = probe_cloud.measure(dev, H, W, D)
+            log(f"[{W}x{H}] points layer: {json.dumps(m)}")
+            for name in ("reproject", "compact"):
+                note(name, 0.0 if all(m["equal"].values()) else float("inf"))
+                if not results[name].get("ms"):
+                    results[name].update(
+                        ms=m[name]["ms"], plain_ms=m[name]["plain_ms"],
+                        **bound(m[name]["bound_ms"] * 1e-3 * PEAK_BYTES_S,
+                                OPS_PER[name] * H * W))
+            if not all(m["equal"].values()):
+                raise AssertionError(f"[{W}x{H}] points layer differs from the plain ops: "
+                                     f"{m['equal']}")
 
     # The main paths (phases 4 and 5): each runs with every launch count set
     # to 0 just before it and read just after, so each shows its own
@@ -1804,12 +1834,12 @@ def main() -> int:
         cost launch must have taken the packed kernel unless `wide_cost`
         (config 1's int32 planes)."""
         for counts in (CK.launches, CK.cost_paths, SK.launches, LK.launches, SPK.launches,
-                       OC.launches, RK.launches):
+                       OC.launches, RK.launches, CL.launches):
             for k in counts:
                 counts[k] = 0
         yield
         got = {**CK.launches, **SK.launches, **LK.launches, **SPK.launches, **OC.launches,
-               **RK.launches}
+               **RK.launches, **CL.launches}
         log(f"launches on {label}: {json.dumps(got)}; cost kernels {json.dumps(CK.cost_paths)}")
         if CK.cost_paths["i32"] and not wide_cost:
             raise AssertionError(f"{label}: {CK.cost_paths['i32']} cost launches took the "
@@ -2099,7 +2129,7 @@ def main() -> int:
         # on the card to one scalar, the speckle filter on the device.
         cfg3 = DP.SGBMConfig(num_disparities=D4, num_directions=5)
         core = cfg3.with_(speckle_window_size=0)
-        Q = res.Q.to(device=dev, dtype=torch.float32)
+        Q = res.Q.to(torch.float32)  # on the host: the reprojection takes its values
         l_dev, r_dev = torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev)
 
         def chain():
@@ -2114,7 +2144,8 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         walls3, total = [], 0.0
-        with main_path("4K config 3 device chain (device speckle)", dense + speckle + ("remap",)):
+        with main_path("4K config 3 device chain (device speckle)",
+                       dense + speckle + ("remap", "reproject")):
             for _ in range(4):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -2438,10 +2469,11 @@ def main() -> int:
             """Config 3's device chain on phase 5's pair, rectified for the rig
             at K: (disparity map, keep mask, P1[0, 0]), timed."""
             Kt, res = rectified_rig((W4, H4), K=K)
-            Q = res.Q.to(device=dev, dtype=torch.float32)
+            Q = res.Q.to(torch.float32)  # on the host: the reprojection takes its values
             walls, out = [], None
             label = "anchor" if np.array_equal(np.asarray(K), K_4K) else "calibrated"
-            with main_path(f"4K config 3 device chain, {label} K", dense + speckle + ("remap",)):
+            with main_path(f"4K config 3 device chain, {label} K",
+                           dense + speckle + ("remap", "reproject")):
                 for _ in range(3):
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()

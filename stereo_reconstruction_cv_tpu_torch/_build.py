@@ -216,6 +216,8 @@ KERNELS = {
     "srcv_wta": [_P] * 3 + [_I] * 11 + [_P] * 5,
     "srcv_op_chain": [_P] * 2 + [_I] * 4,
     "srcv_remap_bilinear": [_P] * 3 + [_I] * 6,
+    "srcv_cloud_reproject": [_P] * 2 + [_I] * 2 + [ctypes.c_float] * 16,
+    "srcv_cloud_compact": [_P] * 6 + [_I] * 2,
 }
 
 

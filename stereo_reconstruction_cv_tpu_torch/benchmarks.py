@@ -238,7 +238,7 @@ def bench_config3(device="cuda", size=(3840, 2160), iters=3):
         Kt, res = synth.rectified_rig(size, alpha, K)
         maps = [RC.rectify_map(Kt, None, R, P, (W, H), device=dev)
                 for R, P in ((res.R1, res.P1), (res.R2, res.P2))]
-        Q = res.Q.to(device=dev, dtype=torch.float32)
+        Q = res.Q.to(torch.float32)  # on the host: the reprojection takes its values
 
         def e2e():
             rl = RC.remap_bilinear(left, maps[0])
@@ -345,7 +345,7 @@ def bench_config5(device="cuda", size=(3840, 2160), decoder="nvjpeg", n_pairs=8,
     dev = stages.resolve_device(device)
     W, H = size
     K, res = synth.rectified_rig(size)
-    Q = res.Q.to(device=dev, dtype=torch.float32)
+    Q = res.Q.to(torch.float32)  # on the host: the reprojection takes its values
     cfg = SGBMConfig(num_disparities=128, num_directions=8, speckle_window_size=0)
     T = np.array([-synth.BASELINE_M, 0.0, 0.0])
     bases = [np.stack([v.cpu().numpy() for v in synth.render_pair(

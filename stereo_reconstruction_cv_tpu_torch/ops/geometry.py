@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from stereo_reconstruction_cv_tpu_torch.ops.cuda import cloud as CL
+
 
 def to_homogeneous(pts: torch.Tensor) -> torch.Tensor:
     """(..., D) -> (..., D+1) with a trailing 1."""
@@ -164,18 +166,18 @@ def triangulate_to_3d(P1: torch.Tensor, P2: torch.Tensor, pts1: torch.Tensor,
     return from_homogeneous(triangulate_points(P1, P2, pts1, pts2), eps=1e-30)
 
 
-def reproject_image_to_3d(disparity: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
+def reproject_image_to_3d(disparity: torch.Tensor, Q, out: torch.Tensor | None = None) -> torch.Tensor:
     """(H, W) disparity -> (H, W, 3): [X Y Z W]^T = Q [x y d 1]^T, output
     (X, Y, Z)/W, W == 0 mapped to inf (cv2.reprojectImageTo3D,
-    handleMissingValues=False)."""
-    H, W = disparity.shape
-    dt, dev = disparity.dtype, disparity.device
-    Q = Q.to(dtype=dt, device=dev)
-    y = torch.arange(H, dtype=dt, device=dev)[:, None]
-    x = torch.arange(W, dtype=dt, device=dev)[None, :]
-    out = [x * Q[i, 0] + y * Q[i, 1] + disparity * Q[i, 2] + Q[i, 3] for i in range(4)]
-    w = torch.where(out[3] == 0, torch.full_like(out[3], float("inf")), out[3])
-    return torch.stack([out[0] / w, out[1] / w, out[2] / w], dim=-1)
+    handleMissingValues=False); written into `out` (H, W, 3) when given.
+
+    A CPU disparity takes the plain torch ops; a CUDA one the kernel, one
+    launch with Q's values as its arguments, which takes a float32 map only
+    (ops/cuda/cloud.py). Give Q on the host (numpy or a CPU tensor): a CUDA
+    Q is read back first, which waits for the device."""
+    if disparity.device.type == "cpu":
+        return CL.reproject_plain(disparity, Q, out)
+    return CL.reproject_cuda(disparity, Q, out)
 
 
 def valid_point_mask(points_3d: torch.Tensor, disparity: torch.Tensor) -> torch.Tensor:

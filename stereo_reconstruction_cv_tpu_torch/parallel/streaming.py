@@ -28,6 +28,7 @@ from stereo_reconstruction_cv_tpu_torch.config import SGBMConfig
 from stereo_reconstruction_cv_tpu_torch.io import ply as PLY
 from stereo_reconstruction_cv_tpu_torch.ops import disparity as DP
 from stereo_reconstruction_cv_tpu_torch.ops import geometry as G
+from stereo_reconstruction_cv_tpu_torch.ops.cuda import cloud as CL
 from stereo_reconstruction_cv_tpu_torch.parallel import mesh as M
 from stereo_reconstruction_cv_tpu_torch.parallel.prefetch import PrefetchLoader
 from stereo_reconstruction_cv_tpu_torch.parallel.sgm_sharded import sharded_sgbm_disparity
@@ -37,19 +38,22 @@ from stereo_reconstruction_cv_tpu_torch.utils.profiling import span
 def dense_batch_step(left, right, Q, cfg: SGBMConfig, mesh: Optional[M.Mesh] = None):
     """(B, H, W) uint8 pairs -> (disparity (B, H, W), points (B, H, W, 3),
     valid (B, H, W)) on their device. The port's sgbm_disparity takes one
-    frame, so the batch runs one pair after the other. With `mesh`, the
-    pairs (tensors, or Sharded by batch_row_sharding) run through
-    sharded_sgbm_disparity and each comes back on a device of its own data
-    row (mesh_points): three lists of B tensors, in the batch's order."""
+    frame, so the batch runs one pair after the other, and each pair's
+    points are written into the batch's tensor. Q (4, 4) stays on the host:
+    the reprojection takes its values as launch arguments, so nothing here
+    waits for the device. With `mesh`, the pairs (tensors, or Sharded by
+    batch_row_sharding) run through sharded_sgbm_disparity and each comes
+    back on a device of its own data row (mesh_points): three lists of B
+    tensors, in the batch's order."""
     if mesh is not None:
         return mesh_points(*sharded_sgbm_disparity(mesh, left, right, cfg), Q, mesh)
-    else:
-        maps = [DP.sgbm_disparity(l, r, cfg) for l, r in zip(left, right)]
-        disp = torch.stack([d for d, _ in maps])
-        valid = torch.stack([v for _, v in maps])
+    maps = [DP.sgbm_disparity(l, r, cfg) for l, r in zip(left, right)]
+    disp = torch.stack([d for d, _ in maps])
+    valid = torch.stack([v for _, v in maps])
     with span("cloud.reproject"):
-        Qt = torch.as_tensor(np.asarray(Q), dtype=torch.float32, device=disp.device)
-        pts = torch.stack([G.reproject_image_to_3d(d, Qt) for d in disp])
+        pts = torch.empty((*disp.shape, 3), dtype=disp.dtype, device=disp.device)
+        for d, p in zip(disp, pts):
+            G.reproject_image_to_3d(d, Q, out=p)
     return disp, pts, valid
 
 
@@ -66,17 +70,12 @@ def gather_row(disp: M.Sharded, valid: M.Sharded, i: int):
 def mesh_points(disp: M.Sharded, valid: M.Sharded, Q, mesh: M.Mesh):
     """Sharded maps -> (disparities, points, valid masks): lists in the
     batch's order, each pair's whole maps and points on a device of its own
-    data row (gather_row). Q goes to each device of the mesh once, from
-    pinned memory by a non-blocking copy, so the host does not wait."""
-    host = torch.as_tensor(np.asarray(Q), dtype=torch.float32)
-    if mesh.devices[0][0].type == "cuda":
-        host = host.pin_memory()
-    Qs = {d: host.to(d, non_blocking=True) for row in mesh.devices for d in row}
+    data row (gather_row). Q stays on the host (dense_batch_step)."""
     disps, pts, valids = [], [], []
     for i in range(mesh.shape["data"]):
         ds, vs = gather_row(disp, valid, i)
         with span("cloud.reproject"):
-            pts += [G.reproject_image_to_3d(d, Qs[d.device]) for d in ds]
+            pts += [G.reproject_image_to_3d(d, Q) for d in ds]
         disps += ds
         valids += vs
     return disps, pts, valids
@@ -86,15 +85,12 @@ def cloud_points(disp: torch.Tensor, pts: torch.Tensor, valid: torch.Tensor):
     """The points of one pair that go into its cloud, valid & finite &
     disp > 0 in row-major order, without waiting for the device: (points
     (H*W, 3) whose first `count` rows are the cloud, count (1,) int64), both
-    on the device. The other rows are unspecified."""
+    on the device. The other rows are unspecified. On a CUDA device one call
+    of two kernels (ops/cuda/cloud.compact_cuda), on the CPU the plain ops."""
     with span("cloud.compact"):
-        mask = (valid & G.valid_point_mask(pts, disp)).reshape(-1)
-        n = mask.numel()
-        rank = torch.cumsum(mask, 0) - 1
-        slot = torch.where(mask, rank, torch.full_like(rank, n))  # the rest to a spare row
-        out = torch.empty((n + 1, 3), dtype=pts.dtype, device=pts.device)
-        out.index_copy_(0, slot, pts.reshape(-1, 3))
-        return out[:n], mask.sum().reshape(1)
+        if disp.device.type == "cpu":
+            return CL.compact_plain(disp, pts, valid)
+        return CL.compact_cuda(disp, pts, valid)
 
 
 def stream_reconstruct(

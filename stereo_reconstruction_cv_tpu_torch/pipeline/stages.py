@@ -153,8 +153,8 @@ def disparity(imgL, imgR, ndisp: int = 16, mindis: int = 0, cache=None,
 def reconstruct(disparity_map, Q, device="cuda") -> torch.Tensor:
     """reconstruct_3D parity (cell 11): (H, W, 3) float32 point image."""
     dev = resolve_device(device)
-    return G.reproject_image_to_3d(_on(disparity_map, dev, torch.float32),
-                                   _on(Q, dev, torch.float32))
+    return G.reproject_image_to_3d(_on(disparity_map, dev, torch.float32).contiguous(),
+                                   _on(Q, "cpu", torch.float32))
 
 
 @_observed("export_point_cloud")

@@ -13,7 +13,9 @@ scatter on one address, rows past 48 KB of shared memory, one component
 over a 4K frame, a component per pixel) and the torch ops of rectification
 and reprojection held to the same calls on the CPU, the remap kernel to
 its plain version on rig maps and on maps of every edge case (off-image
-taps, integer and half-pixel coordinates); chip_smoke.py checks
+taps, integer and half-pixel coordinates), the points layer's two kernels
+(reprojection and compaction) to the plain ops bit for bit, with no host
+sync and three kernels a frame; chip_smoke.py checks
 the full-size shapes of the main path. The sparse path (torch ops, no
 kernel of its own) is held to the port's CPU run: SIFT keypoints and
 descriptors, the distance matrix, the robust fits given the same samples,
@@ -51,12 +53,14 @@ from stereo_reconstruction_cv_tpu_torch.ops import geometry as G
 from stereo_reconstruction_cv_tpu_torch.ops import matching as MT
 from stereo_reconstruction_cv_tpu_torch.ops import rectify as RC
 from stereo_reconstruction_cv_tpu_torch.ops import robust as RB
+from stereo_reconstruction_cv_tpu_torch.ops.cuda import cloud as CL
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import cost as CK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import lr as LK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import op_chain as OC
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import remap as RK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import sgm as SK
 from stereo_reconstruction_cv_tpu_torch.ops.cuda import speckle as SPK
+from stereo_reconstruction_cv_tpu_torch.parallel import streaming as ST
 from stereo_reconstruction_cv_tpu_torch.pipeline import stages
 from stereo_reconstruction_cv_tpu_torch.tools import micro_i16
 from stereo_reconstruction_cv_tpu_torch.utils import synth
@@ -516,6 +520,177 @@ def test_remap_kernel_raises_on_what_it_does_not_take(dev):
         RC.remap_bilinear(torch.zeros((8, 16), dtype=torch.uint8, device=dev)[:, ::2], m)
     with pytest.raises(ValueError, match="map must be"):
         RC.remap_bilinear(torch.zeros((8, 8), dtype=torch.uint8, device=dev), m.double())
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _cloud_disparity(rng, H, W):
+    """Disparities like SGBM's (0 where invalid, the margin's -1) and +-0.5,
+    which with _offset_q's Q makes W == 0 away from d == 0."""
+    disp = rng.uniform(0.5, 90.0, (H, W)).astype(np.float32)
+    disp[rng.random((H, W)) < 0.2] = 0.0
+    disp[:, :5] = -1.0
+    disp[rng.random((H, W)) < 0.05] = -0.5
+    disp[rng.random((H, W)) < 0.05] = 0.5
+    disp[0, -1] = -0.0
+    return disp
+
+
+def _cloud_qs(W, H):
+    """The benchmark's rig's Q, and the rotated rig's with Q[3, 3] = Q[3, 2] / 2,
+    so that d = -0.5 gives W == 0 exactly."""
+    _, res = synth.rectified_rig((W, H))
+    q = _rig("rotated", W, H)[2].Q.to(torch.float32).clone()
+    q[3, 3] = q[3, 2] * 0.5
+    return {"rig": res.Q.numpy(), "offset": q}
+
+
+@pytest.mark.parametrize("H,W", [(720, 1280), (2160, 3840), (181, 321)])
+@pytest.mark.parametrize("q", ["rig", "offset"])
+def test_reproject_kernel_equals_plain(dev, H, W, q):
+    """One launch a call, bit-equal to the plain ops on the CPU and on the
+    card (signed zeros included), with W == 0 (-> inf, so the point is 0) at
+    d == 0, -0.0 and, for "offset", d == -0.5."""
+    Q = _cloud_qs(W, H)[q]
+    disp = torch.from_numpy(_cloud_disparity(np.random.default_rng(H + W), H, W))
+    before = dict(CL.launches)
+    got = G.reproject_image_to_3d(disp.to(dev), Q)
+    assert CL.launches == {**before, "reproject": before["reproject"] + 1}
+    want_card = CL.reproject_plain(disp.to(dev), Q)
+    torch.cuda.synchronize()
+    want = G.reproject_image_to_3d(disp, Q)
+    assert got.dtype == torch.float32 and got.shape == (H, W, 3)
+    zero_w = disp == (0.0 if q == "rig" else -0.5)  # W == 0: (X, Y, Z) / inf
+    assert bool(zero_w.any()) and bool((want[zero_w] == 0).all())
+    assert torch.equal(_bits(got).cpu(), _bits(want))
+    assert torch.equal(_bits(got), _bits(want_card))
+
+
+@pytest.mark.parametrize("H,W", [(181, 321), (4, 8)])  # odd H * W: pts[1] is not 16-byte aligned
+def test_reproject_kernel_writes_into_a_batch_tensor(dev, H, W):
+    """out= writes each pair's points in place, through the vector path and
+    the unaligned one; a CUDA Q (read back to the host) gives the same bits."""
+    Q = _cloud_qs(W, H)["rig"]
+    disp = torch.from_numpy(_cloud_disparity(np.random.default_rng(3), H, W)).to(dev)
+    pts = torch.full((2, H, W, 3), 7.0, device=dev)
+    for p in pts:
+        assert G.reproject_image_to_3d(disp, Q, out=p) is p
+    want = G.reproject_image_to_3d(disp.cpu(), Q)
+    for p in pts:
+        assert torch.equal(_bits(p).cpu(), _bits(want))
+    got = G.reproject_image_to_3d(disp, torch.as_tensor(Q, device=dev))
+    assert torch.equal(_bits(got).cpu(), _bits(want))
+
+
+def test_reproject_kernel_raises_on_what_it_does_not_take(dev):
+    d = torch.zeros((8, 8), device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        G.reproject_image_to_3d(d.double(), np.eye(4))
+    with pytest.raises(ValueError, match="contiguous"):
+        G.reproject_image_to_3d(torch.zeros((8, 16), device=dev)[:, ::2], np.eye(4))
+    with pytest.raises(ValueError, match="out must be"):
+        G.reproject_image_to_3d(d, np.eye(4), out=torch.empty((8, 8, 4), device=dev))
+    with pytest.raises(ValueError, match="4 x 4"):
+        G.reproject_image_to_3d(d, np.eye(3))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        CL.compact_cuda(d, torch.zeros((8, 8, 3)), torch.ones((8, 8), dtype=torch.bool, device=dev))
+
+
+def _compact_case(kind, H, W, dev):
+    rng = np.random.default_rng(H * W)
+    disp = torch.from_numpy(_cloud_disparity(rng, H, W)).to(dev)
+    pts = torch.from_numpy(rng.normal(0, 3, (H, W, 3)).astype(np.float32)).to(dev)
+    bad = torch.from_numpy(rng.random((H, W, 3)) < 0.02).to(dev)
+    pts[bad] = float("inf")
+    pts[torch.from_numpy(rng.random((H, W, 3)) < 0.01).to(dev)] = float("nan")
+    valid = torch.from_numpy(rng.random((H, W)) < 0.8).to(dev)
+    if kind == "all invalid":
+        valid[:] = False
+    elif kind == "all kept":
+        disp, valid = disp.abs() + 1.0, torch.ones_like(valid)
+        pts = torch.nan_to_num(pts, nan=1.0, posinf=2.0)
+    return disp, pts, valid
+
+
+@pytest.mark.parametrize("kind", ["random", "all invalid", "all kept"])
+@pytest.mark.parametrize("H,W", [(181, 321), (720, 1280), (1, 1), (64, 64), (2160, 3840)])
+def test_compact_kernel_equals_the_mask(dev, kind, H, W):
+    """One call a frame: the first `count` rows are pts[mask] in row-major
+    order, bit for bit, and count is mask.sum() (int64, shape (1,)); at one
+    pixel, one tile exactly (4096) and many tiles."""
+    disp, pts, valid = _compact_case(kind, H, W, dev)
+    before = dict(CL.launches)
+    out, count = ST.cloud_points(disp, pts, valid)
+    assert CL.launches == {**before, "compact": before["compact"] + 1}
+    mask = valid & torch.isfinite(pts).all(-1) & (disp > 0)
+    want = pts[mask]
+    torch.cuda.synchronize()
+    assert count.dtype == torch.int64 and count.shape == (1,) and count.device == disp.device
+    assert out.shape == (H * W, 3) and out.dtype == torch.float32
+    n = int(count)
+    assert n == int(mask.sum()) == len(want)
+    if kind == "all invalid":
+        assert n == 0
+    if kind == "all kept":
+        assert n == H * W
+    assert torch.equal(_bits(out[:n]), _bits(want))
+
+
+def test_points_layer_makes_no_host_sync_and_launches_three_kernels(dev):
+    """On precomputed maps, the reprojection (Q a numpy array) and the
+    compaction raise nothing under sync_debug_mode "error", copy nothing
+    between host and card, and launch one reprojection kernel and two
+    compaction kernels (launch counts and the profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    H, W = 720, 1280
+    Q = _cloud_qs(W, H)["rig"]
+    disp = torch.from_numpy(_cloud_disparity(np.random.default_rng(5), H, W)).to(dev)
+    valid = disp > 1.0
+    pts = G.reproject_image_to_3d(disp, Q)  # warm
+    ST.cloud_points(disp, pts, valid)
+    torch.cuda.synchronize()
+    before = dict(CL.launches)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pts = G.reproject_image_to_3d(disp, Q)
+            out, count = ST.cloud_points(disp, pts, valid)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    assert CL.launches == {"reproject": before["reproject"] + 1, "compact": before["compact"] + 1}
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 3, names
+    assert sum("reproject_kernel" in n for n in names) == 1
+    assert sum("count_kernel" in n for n in names) == 1
+    assert sum("scatter_kernel" in n for n in names) == 1
+    mask = valid & torch.isfinite(pts).all(-1) & (disp > 0)
+    assert int(count) == int(mask.sum())
+
+
+def test_dense_batch_step_writes_each_pairs_points_in_place(dev):
+    """dense_batch_step with a host Q: its maps are sgbm_disparity's on the
+    card, its points (B, H, W, 3) the plain ops' on those maps on the CPU,
+    bit for bit, one reprojection launch a pair."""
+    from stereo_reconstruction_cv_tpu_torch.config import SGBMConfig
+
+    H, W = 48, 96
+    rng = np.random.default_rng(9)
+    left = torch.from_numpy(rng.integers(0, 256, (2, H, W), dtype=np.uint8)).to(dev)
+    right = torch.roll(left, -6, 2)
+    Q = _cloud_qs(W, H)["rig"]
+    cfg = SGBMConfig(num_disparities=16, num_directions=5, speckle_window_size=0)
+    before = CL.launches["reproject"]
+    disp, pts, valid = ST.dense_batch_step(left, right, Q, cfg)
+    assert CL.launches["reproject"] == before + 2
+    assert pts.shape == (2, H, W, 3) and pts.is_contiguous()
+    for i in range(2):
+        d, v = DP.sgbm_disparity(left[i], right[i], cfg)
+        assert torch.equal(disp[i], d) and torch.equal(valid[i], v)
+        assert torch.equal(_bits(pts[i]).cpu(), _bits(G.reproject_image_to_3d(d.cpu(), Q)))
 
 
 @pytest.mark.parametrize("nd", [5, 8])
