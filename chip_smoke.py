@@ -51,6 +51,13 @@ Phases:
                times
                (kernels shorter than their wrapper's host work by CUDA-graph
                replay, as the LR and speckle kernels in phase 3)
+  4c. bm       config 1 as the cell hd720_bm64.live runs it: sgbm_disparity
+               at zero paths (block matching), 720p x 64, uniqueness 10, LR
+               1, device speckle 100 / 32, with one cost_volume, one
+               wta_volume and one lr_check launch a frame and no path
+               sweep; the known shift recovered; wta_volume(C, ()) on that
+               frame's cost volume EQUAL to the plain WTA, its time and
+               bound (2 B a cell, 13 B a pixel) the kernels line's
   5. 4K        3840x2160 x 256, 5 paths, the rig of the reference's 4K
                benchmark: the pair -> PLY chain (stereo_rectify ->
                rectify_remap -> compute_disparity_map -> reproject -> PLY, host
@@ -137,11 +144,12 @@ Phases:
                (tile_rows 512) on phase 5's pair against the whole frame:
                agreement, peak memory, time; (g) sgbm_disparity_fast there:
                the share within 1 and 2 px, time
-Each main path of phases 4, 4b, 5, 7, 8, 9, 10, 11 and 12 (config 2 with device,
-host and no speckle, the 720p CLI chain, the two tools, the 4K pair -> PLY,
+Each main path of phases 4, 4b, 4c, 5, 7, 8, 9, 10, 11 and 12 (config 2 with
+device, host and no speckle, the 720p CLI chain, the two tools, block
+matching, the 4K pair -> PLY,
 config 3's chain, the raw pair's dense chain, config 4's step, learned
 geometry, the calibration and config 3's chain at the anchor and the
-calibrated K, each bench config: 1 the cost kernel alone, 2 and 3 the dense
+calibrated K, each bench config: 1 the cost and WTA kernels, 2 and 3 the dense
 and speckle kernels, 4 none, 5 the dense kernels and no speckle one; the
 streamed clouds; the stereo pool's build and the two trainings) runs with
 the launch counts zeroed just before it and read just after: every kernel
@@ -871,7 +879,8 @@ def bench_phase(torch, dev, main_path, dense, speckle):
 
     others = tuple(k for k in KERNELS if k not in dense + speckle)
     cloud = ("remap", "reproject")  # config 3 rectifies; 3 and 5 reproject, none compacts
-    expect = {1: (("cost_volume",), tuple(k for k in KERNELS if k != "cost_volume"), True),
+    bm = ("cost_volume", "wta_volume")  # config 1: block matching's cost and WTA
+    expect = {1: (bm, tuple(k for k in KERNELS if k not in bm), True),
               2: (dense + speckle, others),
               3: (dense + speckle + cloud, tuple(k for k in others if k not in cloud)),
               4: ((), tuple(KERNELS)),
@@ -1828,11 +1837,12 @@ def main() -> int:
     main_counts = dict.fromkeys(KERNELS, 0)
 
     @contextlib.contextmanager
-    def main_path(label, launched, not_launched=(), wide_cost=False):
+    def main_path(label, launched, not_launched=(), wide_cost=False, exact=None):
         """Counts zeroed before the body and read after it: each kernel of
-        `launched` must have run in it, none of `not_launched`, and every
-        cost launch must have taken the packed kernel unless `wide_cost`
-        (config 1's int32 planes)."""
+        `launched` must have run in it, none of `not_launched`, each of
+        `exact` (a dict) as many times as it gives, and every cost launch
+        must have taken the packed kernel unless `wide_cost` (config 1's
+        int32 planes)."""
         for counts in (CK.launches, CK.cost_paths, SK.launches, LK.launches, SPK.launches,
                        OC.launches, RK.launches, CL.launches):
             for k in counts:
@@ -1851,6 +1861,9 @@ def main() -> int:
         if missing or extra:
             raise AssertionError(f"{label}: kernels not launched {missing}, "
                                  f"launched though they should not be {extra}")
+        miscounted = {k: got[k] for k, n in (exact or {}).items() if got[k] != n}
+        if miscounted:
+            raise AssertionError(f"{label}: launches {miscounted}, expected {exact}")
 
     # -------------------------------------------------------------- 4. 720p
     @phase("4 main path 720p")
@@ -1994,9 +2007,6 @@ def main() -> int:
                         + json.dumps(var_ms))
                     if nv == 1:
                         t_pp = cuda_ms(lambda: SK.pack_maps(*wta_plain(C, vols, ur_c, md_c)), 1)
-                        results["wta_volume"].update(
-                            ms=t_k, plain_ms=t_p,
-                            **bound(cells * (2 + 2 * nv) + 13 * px, OPS_PER["wta_volume"] * cells))
                         results["wta_packed"].update(
                             ms=var_ms["native/sum 8x512"], plain_ms=t_pp,
                             **bound(cells * (2 + 2 * nv) + 32 * px, OPS_PER["wta_packed"] * cells))
@@ -2071,6 +2081,58 @@ def main() -> int:
         log(f"op_chain SASS, add+min at W = 512: {json.dumps(found, sort_keys=True)}")
         if len(found) != len(OC.DTYPES):
             raise AssertionError(f"op_chain SASS: add+min kernels found for {sorted(found)} only")
+
+    # ------------------------------------------------- 4c. block matching
+    @phase("4c main path 720p block matching")
+    def _():
+        rng = np.random.default_rng(SEED + 6)
+        H, W, shift, D = 720, 1280, 30, 64
+        left, right = textured_pair(rng, H, W, shift)
+        l, r = torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev)
+        # BASELINE config 1 as the cell hd720_bm64.live runs it: no path,
+        # main.ipynb cell 10's post stages (uniqueness 10, LR 1, speckle 100 / 32).
+        cfg = DP.SGBMConfig(num_disparities=D, num_directions=0, uniqueness_ratio=10,
+                            disp12_max_diff=1, speckle_window_size=100, speckle_range=32)
+        DP.sgbm_disparity(l, r, cfg)  # warm, outside the counts
+        frames, walls = 4, []
+        sweeps = tuple(k for k in KERNELS if k.startswith("sgm_"))
+        with main_path("720p block matching x64 (device speckle)",
+                       ("cost_volume", "wta_volume", "lr_check") + speckle,
+                       sweeps + ("wta_packed",),
+                       exact={"cost_volume": frames, "wta_volume": frames, "lr_check": frames}):
+            for _ in range(frames):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                disp, valid = DP.sgbm_disparity(l, r, cfg)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+        profile_idle(torch, "720p sgbm_disparity x64 block matching (device speckle)",
+                     lambda: DP.sgbm_disparity(l, r, cfg))
+        share, vshare = within_shift(torch.where(valid, disp, torch.zeros_like(disp)), D, shift)
+        log(f"sgbm_disparity 720p x64 block matching: s/pair {walls} (median "
+            f"{statistics.median(walls)} s); valid {vshare:.4f}; within 1 px of {shift}: "
+            f"{share:.4f}")
+        if share < 0.95 or vshare < 0.3:
+            raise AssertionError("720p block matching does not recover the known shift")
+        # The WTA pass on that frame's cost volume, as sgbm_disparity hands
+        # it over, against the plain WTA; its time fills the kernels line.
+        C = DP.sgbm_cost(l, r, cfg)
+        ur_b, md_b = cfg.uniqueness_ratio, cfg.min_disparity
+        got = SK.wta_volume(C, (), ur_b, md_b)
+        ref = SK.wta_volume_plain(C, (), ur_b, md_b)
+        err = max(max_err(torch, a, b) for a, b in zip(got, ref))
+        note("wta_volume", err)
+        if err != 0:
+            raise AssertionError(f"720p x64: wta_volume(C, ()) differs from the plain WTA by {err}")
+        cells, px = C.numel(), C.shape[0] * C.shape[1]
+        # Graph replay: the kernel is shorter than its wrapper's host work.
+        t_k = graph_ms(lambda: SK.wta_volume(C, (), ur_b, md_b), iters=20)
+        t_p = cuda_ms(lambda: SK.wta_volume_plain(C, (), ur_b, md_b), 3)
+        results["wta_volume"].update(
+            ms=t_k, plain_ms=t_p, **bound(2 * cells + 13 * px, OPS_PER["wta_volume"] * cells))
+        log(f"[720p x64 {tuple(C.shape)}] wta_volume(C, ()) equal to the plain WTA; "
+            f"{t_k:.4f} ms (graph replay; plain {t_p:.3f} ms); valid share {ref[1].float().mean().item():.4f}")
+        del C, got, ref
 
     # ---------------------------------------------------------------- 5. 4K
     frame = {}  # phase 5's rectified pair, disparity map and device-chain maps, for phase 6

@@ -25,6 +25,7 @@ the wrappers' check that their inputs lie on one CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -305,10 +306,32 @@ def launch(entry: str, device: torch.device, *args, counts: tuple[dict, str] | N
         count(*counts)
 
 
+_recorders = threading.local()
+
+
 def count(launches: dict, name: str) -> None:
     """Add one to a wrapper's launch count for the kernel it just launched.
     A call made while the current stream is captured into a CUDA graph only
-    records the kernel, so it adds nothing: the graph's replays launch it,
-    and utils/timing.graph_ms counts those."""
+    records the kernel, so it adds nothing: the graph's replays launch it.
+    Inside recording() the count is kept for the replays to add
+    (utils/timing.graph_ms counts its own)."""
     if not torch.cuda.is_current_stream_capturing():
         launches[name] += 1
+        return
+    recorder = getattr(_recorders, "counts", None)
+    if recorder is not None:
+        recorder.append((launches, name))
+
+
+@contextlib.contextmanager
+def recording():
+    """The counts that launches captured on this thread inside the block
+    skipped, as a list of (launch-count dict, name): a graph's replay adds
+    one to each."""
+    counts: list = []
+    outer = getattr(_recorders, "counts", None)
+    _recorders.counts = counts
+    try:
+        yield counts
+    finally:
+        _recorders.counts = outer

@@ -27,9 +27,12 @@ Where it differs from the reference, on purpose:
 - the data is rendered from seeds (``utils/synth.py``, ``textured_pair``),
   not read from the reference's dataset, which is not in the repository;
   config 3 calibrates on 44 rendered 4K boards;
-- config 1's WTA reduces the cost volume widened to int32: the reference's
-  XLA ``wta_disparity`` on the int16 volume wraps S * 100 and marks most
-  pixels invalid at uniqueness 0 (ROADMAP C, reference fault 9);
+- config 1's WTA is block matching's (``wta_volume`` with no delta
+  volume, as ``sgm_wta`` runs it at ``num_directions=0``: the kernel over
+  the int16 volume on the card, which tests uniqueness in int32 arithmetic, as the plain version
+  on the volume widened to int32 does): the reference's XLA
+  ``wta_disparity`` on the int16 volume wraps S * 100 and marks most pixels
+  invalid at uniqueness 0 (ROADMAP C, reference fault 9);
 - config 5's window holds every pair's decode and host -> device copy, which
   it counts (``n_decodes``, ``n_h2d_events``), and the frames are JPEG files
   written by PIL and decoded by the named ``decoder`` (reference fault 4);
@@ -146,11 +149,11 @@ def sad_wta_step(left: torch.Tensor, right: torch.Tensor, num_disp: int = 64,
                  block: int = 11, cap: int = 63):
     """Config 1's step (reference benchmarks.py:133-142): the clipped Sobel and
     raw planes (no border pinning), the cost volume over the columns x >=
-    num_disp, and WTA at min_disp 0 and uniqueness 0 on it widened to int32
-    -> (disp f32, valid) of those columns."""
+    num_disp, and block matching's WTA at min_disp 0 and uniqueness 0 on it
+    (wta_volume with no delta volume) -> (disp f32, valid) of those columns."""
     C = cost_volume(xsobel_clip(left, cap), xsobel_clip(right, cap), left.to(torch.int32),
                     right.to(torch.int32), num_disp, 0, block)
-    return SK.wta_maps(C.to(torch.int32), 0, 0)[:2]
+    return SK.wta_volume(C, (), 0, 0)[:2]
 
 
 def bench_config1(device="cuda", size=(1280, 720), iters=8):
@@ -166,7 +169,7 @@ def bench_config1(device="cuda", size=(1280, 720), iters=8):
     t, _ = _timed(step, iters, dev)
     planes = (xsobel_clip(left), xsobel_clip(right), left.to(torch.int32), right.to(torch.int32))
     t_cost, C = _timed(lambda: cost_volume(*planes, D, 0, block), iters, dev)
-    t_wta, _ = _timed(lambda: SK.wta_maps(C.to(torch.int32), 0, 0), iters, dev)
+    t_wta, _ = _timed(lambda: SK.wta_volume(C, (), 0, 0), iters, dev)
     mpix = size[0] * size[1] / 1e6
     return {
         "metric": "sad_wta_720p_64disp",

@@ -20,14 +20,18 @@ replace the TPU kernels of ``ops/pallas/sgm_pallas.py``:
 ``sgm_aggregate`` (``sgm_aggregate_pallas``, the full S volume: path sweeps +
 ``sgm_sweep_sum``) dispatch on the device of the cost volume: CPU takes the
 plain version, CUDA launches the kernels (or raises). Delta volumes hold u16
-bits in int16-typed tensors; ``u16`` widens them.
+bits in int16-typed tensors; ``u16`` widens them. At zero paths (block
+matching, ``num_directions=0``) ``sgm_wta`` sweeps nothing: S = C, and its
+WTA is ``wta_volume`` with no delta volume.
 
-The standalone WTA pass, on no main path, is the wrapper of ``csrc/wta.cu``:
+The standalone WTA pass is the wrapper of ``csrc/wta.cu``:
 
 - ``wta_volume`` (``_wta_volume``): the four maps of
   wta_maps(nd*C + the delta volumes), nd = 5 for one volume and 8 for two;
   ``sgm_sweep_wta(C, vols)`` equals it once the last direction has been
-  accumulated onto one of the volumes;
+  accumulated onto one of the volumes. With no volume, nd = 1: S = C, block
+  matching's WTA (the reference's ``wta_disparity(C)``), read straight from
+  the int16 volume (no int32 copy of C);
 - ``wta_packed`` (``tools/micro_wta.py``'s ``wta_nat`` and ``wta_variant``):
   the same maps packed into (A, B, 8) f32, with the probes' tile and
   reduction knobs, which change no bit of the output.
@@ -42,7 +46,8 @@ import torch
 from stereo_reconstruction_cv_tpu_torch import _build
 
 # Path steps r = (dx, dy); the predecessor of p is p - r. 5 = OpenCV's
-# MODE_SGBM {L, R, UL, U, UR}; 8 = all eight paths.
+# MODE_SGBM {L, R, UL, U, UR}; 8 = all eight paths; 0 = none, block
+# matching (StereoBM's WTA over the cost volume).
 DIRS_5 = ((1, 0), (-1, 0), (1, 1), (0, 1), (-1, 1))
 DIRS_8 = ((1, 0), (1, 1), (0, 1), (-1, 1), (-1, 0), (-1, -1), (0, -1), (1, -1))
 # The direction that runs last, fused with WTA. S is a sum of integers, so
@@ -194,11 +199,13 @@ def sgm_wta_plain(C, p1: int, p2: int, num_directions: int = 8,
 # ---------------------------------------------------------------------------
 
 def directions_for(num_directions: int):
+    if num_directions == 0:
+        return ()
     if num_directions == 5:
         return DIRS_5
     if num_directions == 8:
         return DIRS_8
-    raise ValueError(f"num_directions must be 5 or 8, got {num_directions}")
+    raise ValueError(f"num_directions must be 0 (block matching), 5 or 8, got {num_directions}")
 
 
 def delta_groups(num_directions: int, fused: Tuple[int, int] = FUSED_DIR):
@@ -218,10 +225,15 @@ def _pow2_at_least(n: int) -> int:
 
 
 def check_sgm_bounds(p1: int, p2: int, num_disp: int, num_directions: int) -> None:
-    """Raise where a config would overflow the kernels' integer widths."""
+    """Raise where a config would overflow the kernels' integer widths. At
+    zero paths S = C, and P1, P2 are unused."""
     directions_for(num_directions)
-    check_delta_bounds(p1, p2, num_disp)
-    max_s = num_directions * (0x7FFF + p2)
+    if num_directions:
+        check_delta_bounds(p1, p2, num_disp)
+        max_s = num_directions * (0x7FFF + p2)
+    else:
+        check_disparities(num_disp)
+        max_s = 0x7FFF
     if (max_s + 1) * _pow2_at_least(num_disp) > 0x7FFFFFFF:
         raise ValueError("the packed WTA key S*Dp + d would overflow int32")
 
@@ -235,6 +247,10 @@ def check_delta_bounds(p1: int, p2: int, num_disp: int) -> None:
             f"P2={p2}: a u16 delta volume holds up to 4 directions of <= P2 each, "
             f"4*P2 = {4 * p2} > 65535"
         )
+    check_disparities(num_disp)
+
+
+def check_disparities(num_disp: int) -> None:
     if not 1 <= num_disp <= 512:
         raise ValueError(f"num_disp={num_disp} outside [1, 512]")
 
@@ -474,11 +490,15 @@ def sweep_wta(C: torch.Tensor, vols: Sequence[torch.Tensor], nd: int, p1: int, p
 
 def sgm_wta(C: torch.Tensor, p1: int, p2: int, num_directions: int = 8,
             uniqueness_ratio: int = 10, min_disp: int = 0):
-    """All SGM paths + WTA on the cropped cost volume C (H, Wc, D).
+    """All SGM paths + WTA on the cropped cost volume C (H, Wc, D); at zero
+    paths the WTA over C alone (wta_volume with no delta volume: one launch
+    on the card, wta_maps(C widened) on the CPU).
 
     Returns (disp f32, valid bool, best i32, minS i32), each (H, Wc)."""
     H, W, D = C.shape
     check_sgm_bounds(p1, p2, D, num_directions)
+    if num_directions == 0:
+        return wta_volume(C, (), uniqueness_ratio, min_disp)
     if C.device.type == "cpu":
         return sgm_wta_plain(C, p1, p2, num_directions, uniqueness_ratio, min_disp)
     _require_cuda_cost("sgm_wta", C)
@@ -494,25 +514,30 @@ REDUCTIONS = ("native", "butterfly")  # redux.sync, or an __shfl_xor_sync butter
 EXTRACTS = ("sum", "shuffle")         # S[best -+ 1] by masked warp sum, or by __shfl_sync
 
 
+# S = nd*C + the delta volumes: nd by the number of volumes (the reference's
+# rule for 5 and 8 paths; none is block matching, S = C).
+ND_OF_VOLUMES = (1, 5, 8)
+
+
 def _check_wta_inputs(C: torch.Tensor, vols: Sequence[torch.Tensor],
                       uniqueness_ratio: int) -> int:
-    """Raise on inputs the WTA pass does not take; -> nd (5 or 8)."""
+    """Raise on inputs the WTA pass does not take; -> nd (1, 5 or 8)."""
     if C.dtype != torch.int16 or C.dim() != 3:
         raise ValueError("C must be an (A, B, D) int16 tensor")
     if not 1 <= C.shape[2] <= 512:
         raise ValueError(f"D={C.shape[2]} outside [1, 512]")
-    if not 1 <= len(vols) <= 2:
-        raise ValueError(f"the WTA pass takes one or two delta volumes, got {len(vols)}")
+    if len(vols) > 2:
+        raise ValueError(f"the WTA pass takes at most two delta volumes, got {len(vols)}")
     _check_deltas(C, vols)
     if not 0 <= uniqueness_ratio <= 100:
         raise ValueError(f"uniqueness_ratio={uniqueness_ratio} outside [0, 100]")
-    return 5 if len(vols) == 1 else 8
+    return ND_OF_VOLUMES[len(vols)]
 
 
 def wta_volume_plain(C: torch.Tensor, vols: Sequence[torch.Tensor],
                      uniqueness_ratio: int, min_disp: int):
     """wta_maps(nd*C + sum of the u16 volumes) -> (disp, valid, best, minS)."""
-    nd = 5 if len(vols) == 1 else 8
+    nd = ND_OF_VOLUMES[len(vols)]
     S = nd * C.to(torch.int32)
     for v in vols:
         S += u16(v)
@@ -538,19 +563,20 @@ def _launch_wta(C, vols, nd, uniqueness_ratio, min_disp, bh, bw, bfly, shfl, out
     if not C.is_contiguous():
         raise ValueError("C must be contiguous")
     A, B, D = C.shape
-    dsb = vols[1].data_ptr() if len(vols) > 1 else None
+    dsa, dsb = ([v.data_ptr() for v in vols] + [None, None])[:2]
     ptrs = [None if t is None else t.data_ptr() for t in outs]
-    _build.launch("srcv_wta", dev, C.data_ptr(), vols[0].data_ptr(), dsb, A, B, D, nd,
+    _build.launch("srcv_wta", dev, C.data_ptr(), dsa, dsb, A, B, D, nd,
                   uniqueness_ratio, min_disp, _pow2_at_least(D).bit_length() - 1, bh, bw,
                   int(bfly), int(shfl), *ptrs)
 
 
 def wta_volume(C: torch.Tensor, vols: Sequence[torch.Tensor],
                uniqueness_ratio: int = 10, min_disp: int = 0):
-    """Winner-take-all over S = nd*C + the one or two u16 delta volumes
-    (nd = 5 or 8), pixel by pixel: C (A, B, D) int16 in any layout of the
-    pixels -> (disp f32, valid bool, best i32, minS i32), each (A, B). The
-    kernel on a CUDA tensor, the plain version on the CPU."""
+    """Winner-take-all over S = nd*C + the zero, one or two u16 delta
+    volumes (nd = 1, 5 or 8), pixel by pixel: C (A, B, D) int16 in any
+    layout of the pixels -> (disp f32, valid bool, best i32, minS i32), each
+    (A, B). The kernel on a CUDA tensor (with no volume its own form, which
+    reads C alone), the plain version on the CPU."""
     nd = _check_wta_inputs(C, vols, uniqueness_ratio)
     if C.device.type == "cpu":
         return wta_volume_plain(C, vols, uniqueness_ratio, min_disp)
@@ -572,8 +598,11 @@ def wta_packed(C: torch.Tensor, vols: Sequence[torch.Tensor],
     minS, zeros), as the probes of tools/micro_wta.py write them. One thread
     block takes a tile of bh x bw pixels; `reduction` and `extract` pick the
     warp reduction and the S[best -+ 1] read (REDUCTIONS, EXTRACTS). Neither
-    the tile nor the knobs change a bit of the output."""
+    the tile nor the knobs change a bit of the output. Takes one or two
+    delta volumes (the probes' forms)."""
     nd = _check_wta_inputs(C, vols, uniqueness_ratio)
+    if not vols:
+        raise ValueError("wta_packed takes one or two delta volumes; wta_volume takes none")
     if reduction not in REDUCTIONS or extract not in EXTRACTS:
         raise ValueError(f"reduction in {REDUCTIONS}, extract in {EXTRACTS}; "
                          f"got {reduction!r}, {extract!r}")

@@ -8,6 +8,8 @@ parity, the reference's exact parameter set in the port's own
   BT cost volume + box aggregation    -> cuda/cost.py  (kernel cost_volume)
   semi-global paths + WTA             -> cuda/sgm.py   (kernels sgm_path_sweep,
                                                         sgm_sweep_wta)
+  or, at num_directions=0 (block
+  matching), WTA over the cost volume -> cuda/sgm.py   (kernel wta_volume)
   left-right consistency              -> cuda/lr.py    (kernel lr_check)
   speckle filter, "propagate"         -> cuda/speckle.py (kernels speckle_labels,
                                                         speckle_keep)
@@ -15,7 +17,13 @@ parity, the reference's exact parameter set in the port's own
 
 beside the whole-frame sgbm_disparity: sgbm_disparity_auto, which row-tiles
 (sgbm_disparity_tiled) a frame that does not fit the card's free memory, and
-sgbm_disparity_fast, the reference's coarse-to-fine path.
+sgbm_disparity_fast, the reference's coarse-to-fine path. Block matching
+runs whole-frame, row-tiled and with the host speckle filter; the
+coarse-to-fine path refuses it.
+
+On a CUDA device block matching's whole frame is replayed from a CUDA graph
+(FrameGraph) once its first frame of a shape has run: its ~20 launches cost
+the host more time than the card spends on them.
 
 sgbm_disparity's stages are public so that the exact row-sharded SGBM
 (parallel/sgm_sharded.py) runs the same frame around its own carried sweeps:
@@ -33,7 +41,7 @@ from __future__ import annotations
 
 import torch
 
-from stereo_reconstruction_cv_tpu_torch import native
+from stereo_reconstruction_cv_tpu_torch import _build, native
 from stereo_reconstruction_cv_tpu_torch.config import SGBMConfig
 from stereo_reconstruction_cv_tpu_torch.ops.cuda.cost import (
     _halfpixel_range,
@@ -66,6 +74,19 @@ def validate(H: int, W: int, cfg: SGBMConfig) -> None:
     check_sgm_bounds(cfg.p1, cfg.p2, cfg.num_disparities, cfg.num_directions)
 
 
+def cost_halo(block_size: int) -> int:
+    """Rows beyond a block of rows that its exact cost volume reads: the
+    box's radius, plus one for the Sobel that the box's outermost row reads
+    (6 at block size 11, the reference's _COST_HALO)."""
+    return block_size // 2 + 1
+
+
+def block_matching(cfg: SGBMConfig) -> bool:
+    """Whether cfg runs no path (num_directions=0): StereoBM's WTA over the
+    cost volume, P1 and P2 unused."""
+    return cfg.num_directions == 0
+
+
 def cost_planes(left: torch.Tensor, right: torch.Tensor, cap: int):
     """The four planes of the pixel cost: clipped Sobel and raw intensity of
     both views, with the first and last column of each pinned to cap
@@ -73,14 +94,34 @@ def cost_planes(left: torch.Tensor, right: torch.Tensor, cap: int):
     (uint8 views and a Sobel range [0, 2 * cap] within 255), which the
     cost kernel reads two disparities a register; else int32."""
     byte = left.dtype == right.dtype == torch.uint8 and 2 * cap <= 255
-    dtype = torch.uint8 if byte else torch.int32
+    if byte:
+        return _byte_planes(left, right, cap)
     planes = []
     for p in (xsobel_clip(left, cap), xsobel_clip(right, cap), left, right):
-        p = p.to(dtype, copy=True)
+        p = p.to(torch.int32, copy=True)
         p[:, 0] = cap
         p[:, -1] = cap
         planes.append(p)
     return planes
+
+
+def _byte_planes(left: torch.Tensor, right: torch.Tensor, cap: int):
+    """cost_planes' uint8 planes, both views at once in a dozen tensor ops
+    (the host issues each op of a frame): the four planes are one (4, H, W)
+    tensor, raw views at 2 and 3. Only the Sobel of the interior columns is
+    computed, since the first and last are pinned; its rows replicate at
+    the top and bottom as xsobel_clip's do, in int16 (|dx| <= 4 * 255)."""
+    H, W = left.shape
+    planes = torch.empty((4, H, W), dtype=torch.uint8, device=left.device)
+    planes[2].copy_(left)
+    planes[3].copy_(right)
+    raw = planes[2:].to(torch.int16)
+    h = raw[..., 2:] - raw[..., :-2]
+    hp = torch.cat((h[:, :1], h, h[:, -1:]), dim=1)
+    dx = torch.add(hp[:, :-2] + hp[:, 2:], h, alpha=2)
+    planes[:2, :, 1:-1] = dx.clamp_(-cap, cap).add_(cap)
+    planes[:, :, ::max(W - 1, 1)] = cap  # the first and last columns
+    return list(planes.unbind(0))
 
 
 def margin(cfg: SGBMConfig):
@@ -119,24 +160,84 @@ def sgbm_disparity(left: torch.Tensor, right: torch.Tensor, cfg: SGBMConfig):
     minX1); the left margin is invalid and holds min_disparity - 1. Box and path
     aggregation replicate at that cropped boundary. OpenCV's prefilter pins the
     first and last column of every cost plane, raw ones included, to
-    pre_filter_cap."""
+    pre_filter_cap. At num_directions=0 no path runs: the WTA reads C alone
+    (block matching), under the span "sgbm.wta" in place of
+    "sgbm.aggregate". Block matching on a CUDA device with the "propagate"
+    speckle filter replays its frame from a CUDA graph (FrameGraph) after
+    the first call of each shape and configuration."""
     with span("sgbm"):
-        H, W = left.shape
-        if right.shape != (H, W) or right.device != left.device:
-            raise ValueError("left and right must share one (H, W) shape and device")
-        validate(H, W, cfg)
-        with span("sgbm.cost"):
-            C = sgbm_cost(left, right, cfg)
-        with span("sgbm.aggregate"):
-            disp, valid, best, minS = sgm_wta(
-                C, cfg.p1, cfg.p2, cfg.num_directions, cfg.uniqueness_ratio, cfg.min_disparity
-            )
-        del C
-        with span("sgbm.post"):
-            disp, valid = sgbm_post(disp, valid, best, minS, cfg)
-            if cfg.speckle_window_size > 0:
-                valid = _speckle(disp, valid, cfg)
-        return disp, valid
+        key = (left.shape, right.shape, left.dtype, right.dtype, left.device, right.device, cfg)
+        graph = _graphs.get(key)
+        if graph is not None:
+            return graph(left, right)
+        validate(*_pair_shape(left, right), cfg)
+        out = _frame(left, right, cfg)
+        if (block_matching(cfg) and left.device.type == "cuda"
+                and cfg.speckle_backend == "propagate"):
+            if len(_graphs) >= MAX_GRAPHS:
+                _graphs.pop(next(iter(_graphs)))
+            _graphs[key] = FrameGraph(left, right, cfg)
+        return out
+
+
+def _pair_shape(left: torch.Tensor, right: torch.Tensor):
+    H, W = left.shape
+    if right.shape != (H, W) or right.device != left.device:
+        raise ValueError("left and right must share one (H, W) shape and device")
+    return H, W
+
+
+def _frame(left: torch.Tensor, right: torch.Tensor, cfg: SGBMConfig):
+    """sgbm_disparity's stages, launched one by one."""
+    with span("sgbm.cost"):
+        C = sgbm_cost(left, right, cfg)
+    with span("sgbm.wta" if block_matching(cfg) else "sgbm.aggregate"):
+        disp, valid, best, minS = sgm_wta(
+            C, cfg.p1, cfg.p2, cfg.num_directions, cfg.uniqueness_ratio, cfg.min_disparity
+        )
+    del C
+    with span("sgbm.post"):
+        disp, valid = sgbm_post(disp, valid, best, minS, cfg)
+        if cfg.speckle_window_size > 0:
+            valid = _speckle(disp, valid, cfg)
+    return disp, valid
+
+
+# Block matching's frame issues ~20 short launches and tensor ops whose
+# device time (~0.35 ms at 720p x 64) is less than the host's time to issue
+# them: a graph's replay issues them in one call. Graphs hold their frame's
+# memory, so at most MAX_GRAPHS are kept, the oldest dropped first.
+MAX_GRAPHS = 4
+_graphs: dict = {}
+
+
+class FrameGraph:
+    """One block-matching frame (_frame) captured as a CUDA graph on copies
+    of its inputs. Calling it copies a pair into them, replays the graph on
+    the current stream and returns copies of its (disp, valid), so a later
+    replay overwrites nothing a caller holds. Each replay adds the launch
+    counts that the capture skipped (_build.recording). Made after one eager
+    frame of the same shape, which builds the kernels and the speckle count
+    cells that the capture reuses. Its calls share its input copies, so they
+    run in order on one stream, as calls that share count cells must."""
+
+    def __init__(self, left: torch.Tensor, right: torch.Tensor, cfg: SGBMConfig):
+        self.left = torch.empty_like(left, memory_format=torch.contiguous_format)
+        self.right = torch.empty_like(right, memory_format=torch.contiguous_format)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(left.device):
+            # thread_local: a loader thread's decodes may run meanwhile
+            with _build.recording() as self.counts, \
+                    torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                self.disp, self.valid = _frame(self.left, self.right, cfg)
+
+    def __call__(self, left: torch.Tensor, right: torch.Tensor):
+        self.left.copy_(left)
+        self.right.copy_(right)
+        self.graph.replay()
+        for launches, name in self.counts:
+            launches[name] += 1
+        return self.disp.clone(), self.valid.clone()
 
 
 def filter_speckles_host(disp: torch.Tensor, valid: torch.Tensor,
@@ -163,9 +264,10 @@ def _speckle(disp: torch.Tensor, valid: torch.Tensor, cfg: SGBMConfig) -> torch.
 
 def frame_bytes(H: int, W: int, cfg: SGBMConfig) -> int:
     """Device bytes one frame's SGBM holds at its peak: the int16 cost volume,
-    the u16 delta volumes (one for 5 directions, two for 8) and the planes."""
+    the u16 delta volumes (none for block matching, one for 5 directions,
+    two for 8) and the planes."""
     cells = H * max(W - margin(cfg)[0], 0) * cfg.num_disparities
-    volumes = 2 if cfg.num_directions == 8 else 1
+    volumes = 0 if block_matching(cfg) else (2 if cfg.num_directions == 8 else 1)
     return cells * 2 * (1 + volumes) + 64 * H * W
 
 
@@ -195,16 +297,25 @@ def sgbm_disparity_tiled(left: torch.Tensor, right: torch.Tensor, cfg: SGBMConfi
     """SGBM over row tiles of `tile_rows`, each with `halo` rows of warm-start
     overlap above and below (clamped at the image edges; the scheme of
     parallel/sgm_sharded.py's halo mode), stitched; the speckle filter runs
-    on the whole map afterwards. Peak memory follows tile_rows, not H."""
+    on the whole map afterwards. Peak memory follows tile_rows, not H.
+    Block matching has no path to warm up: its tiles equal the whole
+    frame's rows exactly once the halo covers the cost's rows (cost_halo),
+    and a smaller halo is refused."""
     H, W = left.shape
+    if block_matching(cfg) and halo < cost_halo(cfg.block_size):
+        raise ValueError(f"sgbm_disparity_tiled: block matching (num_directions=0) needs a "
+                         f"halo of at least {cost_halo(cfg.block_size)} rows at block size "
+                         f"{cfg.block_size}, got {halo}")
     if H <= tile_rows:
         return sgbm_disparity(left, right, cfg)
+    validate(*_pair_shape(left, right), cfg)
     core = cfg.with_(speckle_window_size=0)
     disps, valids = [], []
     for y0 in range(0, H, tile_rows):
         y1 = min(y0 + tile_rows, H)
         a, b = max(y0 - halo, 0), min(y1 + halo, H)
-        d, v = sgbm_disparity(left[a:b], right[a:b], core)
+        with span("sgbm"):  # each tile eagerly: a graph a tile shape would hold its memory
+            d, v = _frame(left[a:b], right[a:b], core)
         disps.append(d[y0 - a:y1 - a])
         valids.append(v[y0 - a:y1 - a])
     disp, valid = torch.cat(disps), torch.cat(valids)
@@ -261,7 +372,11 @@ def sgbm_disparity_fast(left: torch.Tensor, right: torch.Tensor, cfg: SGBMConfig
     + block cost (torch ops on 2r+1 planes), WTA and the parabolic
     subpixel. Validity comes from the coarse level; the speckle filter runs
     on the refined map. Raises where the coarse level's width leaves no
-    disparity column (a width the single-device check refuses)."""
+    disparity column (a width the single-device check refuses), and for
+    block matching, which has no coarse-to-fine path here."""
+    if block_matching(cfg):
+        raise ValueError("sgbm_disparity_fast: block matching (num_directions=0) has no "
+                         "coarse-to-fine path; use sgbm_disparity")
     H, W = left.shape
     D = cfg.num_disparities
     r = refine_radius

@@ -18,7 +18,7 @@ across rows, and two modes handle it:
   the single-device ``sgbm_disparity``, bit for bit, on any mesh, from the
   same stages of ``ops.disparity`` around sweeps of its own: ``validate``;
   ``sgbm_cost`` on each shard's rows plus the Sobel and box halo
-  (``cost_halo``) of each interior neighbour; the vertical and diagonal
+  (``ops.disparity.cost_halo``) of each interior neighbour; the vertical and diagonal
   sweeps hand their last row's DP carry to the next shard along the path
   (``sgm_path_sweep``'s carry, ``ops/cuda/sgm.py:path_sweep_cuda``); the last
   direction, fused with WTA, is a horizontal one (``EXACT_FUSED``), so it
@@ -34,6 +34,9 @@ boundary rows, and their summed sizes go back through each shard's labels.
 The result equals the single-device filter exactly; counts are int64 (the
 reference's 7-bit count field is reference fault 3). With SGBM it runs right
 of ``ops.disparity.margin``, as the single-device filter does.
+
+Block matching (``num_directions=0``) has no sharded mode: both modes
+refuse it (``ValueError``), and ``ops.disparity.sgbm_disparity`` runs it.
 
 Inputs are (B, H, W) uint8 tensors, placed with
 ``mesh.batch_row_sharding`` (or already ``Sharded`` that way); outputs are
@@ -66,13 +69,6 @@ from stereo_reconstruction_cv_tpu_torch.utils.profiling import span
 # The direction fused with WTA in exact mode: a horizontal one, row-local.
 # S is a sum of integers, so the maps do not depend on which runs last.
 EXACT_FUSED = (-1, 0)
-
-
-def cost_halo(block_size: int) -> int:
-    """Rows of neighbour a shard needs for an exact cost volume: the box's
-    radius, plus one for the Sobel that the box's outermost row reads
-    (6 at block size 11, the reference's _COST_HALO)."""
-    return block_size // 2 + 1
 
 
 def _on_mesh(mesh: Mesh, x) -> Sharded:
@@ -118,6 +114,7 @@ def sharded_sgbm_disparity(mesh: Mesh, left, right, cfg: SGBMConfig, halo: int =
     single-device maps bit for bit."""
     if exact:
         return sharded_sgbm_disparity_exact(mesh, left, right, cfg)
+    _refuse_block_matching(cfg, "halo")
     L, R = _on_mesh(mesh, left), _on_mesh(mesh, right)
     ns = mesh.shape["space"]
     halo = 0 if ns == 1 else min(halo, L.shape[1] // ns)
@@ -137,12 +134,18 @@ def sharded_sgbm_disparity(mesh: Mesh, left, right, cfg: SGBMConfig, halo: int =
     return disp, valid
 
 
+def _refuse_block_matching(cfg: SGBMConfig, mode: str) -> None:
+    if DP.block_matching(cfg):
+        raise ValueError(f"sharded SGBM ({mode} mode) runs 5 or 8 paths; block matching "
+                         "(num_directions=0) runs on one device: ops.disparity.sgbm_disparity")
+
+
 def _exact_frame(ls: List[torch.Tensor], rs: List[torch.Tensor], cfg: SGBMConfig):
     """One frame's row blocks -> per-shard (disp, valid), the single-device
     maps' rows exactly (module docstring)."""
     ns = len(ls)
     h = ls[0].shape[0]
-    hb = cost_halo(cfg.block_size)
+    hb = DP.cost_halo(cfg.block_size)
     if ns > 1 and h < hb:
         raise ValueError(f"shards of {h} rows: the exact cost volume needs {hb} rows of "
                          "each neighbour")
@@ -185,6 +188,7 @@ def sharded_sgbm_disparity_exact(mesh: Mesh, left, right, cfg: SGBMConfig):
     on any mesh shape (module docstring): exact cost halos, carried
     vertical and diagonal sweeps, a horizontal fused WTA, the LR check and
     the sharded speckle filter."""
+    _refuse_block_matching(cfg, "exact")
     L, R = _on_mesh(mesh, left), _on_mesh(mesh, right)
     DP.validate(L.shape[1], L.shape[2], cfg)
     disp, valid = _by_frame(mesh, lambda ls, rs: _exact_frame(ls, rs, cfg), L, R)

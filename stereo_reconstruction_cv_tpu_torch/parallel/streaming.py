@@ -48,8 +48,8 @@ def dense_batch_step(left, right, Q, cfg: SGBMConfig, mesh: Optional[M.Mesh] = N
     if mesh is not None:
         return mesh_points(*sharded_sgbm_disparity(mesh, left, right, cfg), Q, mesh)
     maps = [DP.sgbm_disparity(l, r, cfg) for l, r in zip(left, right)]
-    disp = torch.stack([d for d, _ in maps])
-    valid = torch.stack([v for _, v in maps])
+    # A batch of one is a view of its maps: no copy.
+    disp, valid = (torch.stack(t) if len(t) > 1 else t[0].unsqueeze(0) for t in zip(*maps))
     with span("cloud.reproject"):
         pts = torch.empty((*disp.shape, 3), dtype=disp.dtype, device=disp.device)
         for d, p in zip(disp, pts):

@@ -84,15 +84,19 @@ def test_cpu_wrapper_launches_no_kernel():
     assert CK.launches == before and CK.cost_paths == paths
 
 
-@pytest.mark.parametrize("cap,dtype", [(63, torch.uint8), (127, torch.uint8),
-                                       (128, torch.int32), (200, torch.int32)])
-def test_cost_planes_are_bytes_where_they_fit(cap, dtype):
+@pytest.mark.parametrize("cap,dtype,H,W", [
+    (63, torch.uint8, 23, 50), (127, torch.uint8, 23, 50),
+    (128, torch.int32, 23, 50), (200, torch.int32, 23, 50),
+    # sizes where the byte planes' interior columns or replicated rows run out
+    (63, torch.uint8, 1, 1), (63, torch.uint8, 1, 2), (63, torch.uint8, 2, 3),
+    (63, torch.uint8, 3, 2), (63, torch.uint8, 4, 7), (63, torch.uint8, 9, 1)])
+def test_cost_planes_are_bytes_where_they_fit(cap, dtype, H, W):
     """cost_planes == the reference's pinned xsobel_clip and raw planes, as
     uint8 while 2 * cap <= 255 (the packed kernel's planes), else int32."""
-    left, right = _pair(7, 23, 50)
+    left, right = _pair(7, H, W)
     got = DP.cost_planes(torch.from_numpy(left), torch.from_numpy(right), cap)
     for g, ref in zip(got, _pinned_planes(left, right, cap)):
-        assert g.dtype == dtype
+        assert g.dtype == dtype and g.is_contiguous()
         np.testing.assert_array_equal(g.numpy().astype(np.int32), ref)
 
 

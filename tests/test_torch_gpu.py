@@ -797,6 +797,137 @@ def test_wta_kernels_equal_plain(dev, A, B, D, ur, md, hi):
                     assert torch.equal(out, packed), (nv, red, ext, bh, bw)
 
 
+def _wta_plain_rows(C, ur, md, rows=128):
+    """wta_maps(C widened to int32) in blocks of rows (a 4K x 256 volume
+    widened whole would take ~16 GB of temporaries)."""
+    parts = [SK.wta_maps(C[a:a + rows].to(torch.int32), md, ur) for a in range(0, C.shape[0], rows)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+@pytest.mark.parametrize("A,B,D,ur,md,hi,offset", [
+    (720, 1216, 64, 10, 0, 20000, 0),   # 1280x720 x 64: block matching's cell
+    (2160, 3584, 256, 10, 0, 20000, 0),  # 3840x2160 x 256
+    (7, 33, 1, 10, 0, 20000, 0), (19, 37, 24, 10, 3, 20000, 0), (5, 3, 3, 10, 1, 6, 0),
+    (11, 13, 24, 0, 0, 6, 0),            # ties and uniqueness hits
+    (9, 41, 96, 10, 2, 20000, 0), (3, 17, 300, 10, 0, 20000, 0), (4, 5, 512, 10, 0, 9, 0),
+    (13, 29, 64, 10, 0, 20000, 1),       # C 2 bytes off 16: the element-by-element loads
+    (13, 29, 17, 10, 0, 20000, 0),
+])
+def test_wta_without_a_delta_volume_equals_plain(dev, A, B, D, ur, md, hi, offset):
+    """The no-volume form of csrc/wta.cu (block matching's WTA, S = C) is
+    bit-equal to wta_maps(C widened to int32): disp, valid, best and minS.
+    Negative costs too (the packed key's arithmetic shift)."""
+    gen = torch.Generator(device=dev).manual_seed(A * B + D)
+    flat = torch.randint(-hi // 4, hi, (A * B * D + offset,), generator=gen, device=dev,
+                         dtype=torch.int16)
+    C = flat[offset:].view(A, B, D)
+    assert (C.data_ptr() % 16 == 0) == (offset == 0)
+    before = dict(SK.launches)
+    got = SK.wta_volume(C, (), ur, md)
+    torch.cuda.synchronize()
+    assert SK.launches["wta_volume"] == before["wta_volume"] + 1
+    ref = _wta_plain_rows(C, ur, md)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert torch.equal(got[1], SK.sgm_wta(C, 0, 0, 0, ur, md)[1])
+
+
+def test_block_matching_on_the_card_equals_the_cpu_with_one_wta_launch(dev):
+    """sgbm_disparity at zero paths on a 720p pair x 64: the card's maps are
+    the CPU's, one wta_volume launch a frame, no path sweep."""
+    from stereo_reconstruction_cv_tpu_torch.tools.probe_sweep import textured_pair
+
+    left, right = (torch.from_numpy(a) for a in
+                   textured_pair(np.random.default_rng(synth.SEED + 1), 720, 1280, 30))
+    cfg = DP.SGBMConfig(num_disparities=64, num_directions=0)
+    DP.sgbm_disparity(left.to(dev), right.to(dev), cfg)  # the build, outside the counts
+    torch.cuda.synchronize()
+    counts = (CK.launches, SK.launches, LK.launches, SPK.launches)
+    before = [dict(c) for c in counts]
+    disp, valid = DP.sgbm_disparity(left.to(dev), right.to(dev), cfg)
+    torch.cuda.synchronize()
+    grew = {k: c[k] - b[k] for c, b in zip(counts, before) for k in c if c[k] != b[k]}
+    assert grew["wta_volume"] == 1 and grew["cost_volume"] == 1 and grew["lr_check"] == 1
+    assert not {k for k in grew if k.startswith("sgm_")}
+    disp_h, valid_h = DP.sgbm_disparity(left, right, cfg)
+    assert torch.equal(disp.cpu(), disp_h) and torch.equal(valid.cpu(), valid_h)
+    assert float(valid_h.float().mean()) > 0.3
+
+
+def _grown(counts, before):
+    return {(i, k): c[k] - b.get(k, 0) for i, (c, b) in enumerate(zip(counts, before))
+            for k in c if c[k] != b.get(k, 0)}
+
+
+def test_block_matching_replays_its_graph_exactly(dev):
+    """After the first frame of a shape, sgbm_disparity at zero paths
+    replays a CUDA graph (FrameGraph): on each of four other 720p pairs the
+    replay equals the eager stages (DP._frame) bit for bit and adds the same
+    launch counts; the maps it returned before are left as they were; the
+    CPU gives the same maps; at most MAX_GRAPHS graphs are kept."""
+    from stereo_reconstruction_cv_tpu_torch.tools.probe_sweep import textured_pair
+
+    rng = np.random.default_rng(synth.SEED + 7)
+    pairs = [tuple(torch.from_numpy(a) for a in textured_pair(rng, 720, 1280, 30))
+             for _ in range(5)]
+    cfg = DP.SGBMConfig(num_disparities=64, num_directions=0)
+    DP._graphs.clear()
+    first = DP.sgbm_disparity(pairs[0][0].to(dev), pairs[0][1].to(dev), cfg)
+    assert len(DP._graphs) == 1
+    counts = (CK.launches, CK.cost_paths, SK.launches, LK.launches, SPK.launches)
+    outs, copies = [], []
+    for left, right in pairs[1:]:
+        lc, rc = left.to(dev), right.to(dev)
+        torch.cuda.synchronize()
+        before = [dict(c) for c in counts]
+        outs.append(DP.sgbm_disparity(lc, rc, cfg))
+        replayed = _grown(counts, before)
+        before = [dict(c) for c in counts]
+        eager = DP._frame(lc, rc, cfg)
+        assert _grown(counts, before) == replayed
+        assert replayed[(2, "wta_volume")] == 1 and replayed[(0, "cost_volume")] == 1
+        torch.cuda.synchronize()
+        assert torch.equal(outs[-1][0], eager[0]) and torch.equal(outs[-1][1], eager[1])
+        copies.append(tuple(t.clone() for t in outs[-1]))
+    assert len(DP._graphs) == 1
+    assert not torch.equal(outs[0][0], outs[1][0])  # each pair is copied in
+    for (d, v), (dc, vc) in zip(outs, copies):  # later replays overwrote nothing returned
+        assert torch.equal(d, dc) and torch.equal(v, vc)
+    assert not torch.equal(first[0], outs[-1][0])
+    for (left, right), (d, v) in list(zip(pairs[1:], outs))[:2]:
+        disp_h, valid_h = DP.sgbm_disparity(left, right, cfg)
+        assert torch.equal(d.cpu(), disp_h) and torch.equal(v.cpu(), valid_h)
+    for h in range(DP.MAX_GRAPHS + 1):
+        DP.sgbm_disparity(pairs[0][0][:96 + h].to(dev), pairs[0][1][:96 + h].to(dev), cfg)
+    assert len(DP._graphs) == DP.MAX_GRAPHS
+    DP._graphs.clear()
+
+
+def test_block_matching_replay_kernels_reach_the_profiler(dev):
+    """A replayed frame's kernels are in the profiler's device trace under
+    their own names (the benchmark reads the WTA pass's time by its name),
+    each linked to the replay's launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from stereo_reconstruction_cv_tpu_torch.tools.probe_sweep import textured_pair
+
+    left, right = (torch.from_numpy(a).to(dev) for a in
+                   textured_pair(np.random.default_rng(synth.SEED + 8), 720, 1280, 30))
+    cfg = DP.SGBMConfig(num_disparities=64, num_directions=0)
+    DP._graphs.clear()
+    DP.sgbm_disparity(left, right, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            DP.sgbm_disparity(left, right, cfg)
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    assert sum("wta_cost_kernel<" in n for n in names) == 3
+    assert sum("cost_volume_u8x2_kernel" in n for n in names) == 3
+    DP._graphs.clear()
+
+
 @pytest.mark.parametrize("H,W", [(37, 512), (5, 128), (1, 32)])
 @pytest.mark.parametrize("dtype", list(OC.DTYPES))
 def test_op_chain_kernel_equals_plain(dev, H, W, dtype):
@@ -1505,7 +1636,7 @@ def test_config1_step_launches_cost_volume_once_and_equals_the_cpu(dev):
     disp, valid = B.sad_wta_step(l.to(dev), r.to(dev), 16)
     torch.cuda.synchronize()
     grew = {k: c[k] - b[k] for c, b in zip(counts, before) for k in c if c[k] != b[k]}
-    assert grew == {"cost_volume": 1}
+    assert grew == {"cost_volume": 1, "wta_volume": 1}
     disp_h, valid_h = B.sad_wta_step(l, r, 16)
     assert torch.equal(disp.cpu(), disp_h) and torch.equal(valid.cpu(), valid_h)
 

@@ -87,6 +87,29 @@ def test_launch_under_graph_capture_adds_no_count(fake_cuda, monkeypatch, captur
     assert len(fake_cuda.calls) == 1
 
 
+@pytest.mark.parametrize("capturing", [False, True])
+def test_recording_keeps_the_counts_that_capture_skips(fake_cuda, monkeypatch, capturing):
+    """Inside recording() a captured launch is kept for the replays to add,
+    once per launch and in order; an eager one is counted as always. The
+    outer recorder is restored on exit, and outside any nothing is kept."""
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing)
+    counts = {"remap": 0, "op_chain": 0}
+    with _build.recording() as outer:
+        with _build.recording() as kept:
+            _build.launch("srcv_remap_bilinear", torch.device("cuda:0"), *range(9),
+                          counts=(counts, "remap"))
+            _build.count(counts, "op_chain")
+        _build.count(counts, "remap")
+    _build.count(counts, "op_chain")
+    if capturing:
+        assert counts == {"remap": 0, "op_chain": 0}
+        assert kept == [(counts, "remap"), (counts, "op_chain")]
+        assert outer == [(counts, "remap")]
+    else:
+        assert counts == {"remap": 2, "op_chain": 2}
+        assert kept == [] and outer == []
+
+
 @pytest.mark.parametrize("err", [0, 700])
 def test_failed_speckle_keep_drops_its_count_cells(fake_cuda, monkeypatch, err):
     """The keep kernels leave their cached count cells zero only when both

@@ -114,9 +114,9 @@ def test_fused_sweep_equals_standalone_pass_of_accumulated_deltas(nd):
 
 def test_wta_argument_checks():
     C = torch.zeros((3, 4, 16), dtype=torch.int16)
-    with pytest.raises(ValueError, match="one or two"):
-        SK.wta_volume(C, [])
-    with pytest.raises(ValueError, match="one or two"):
+    with pytest.raises(ValueError, match="one or two"):  # no volume is wta_volume's alone
+        SK.wta_packed(C, [])
+    with pytest.raises(ValueError, match="at most two"):
         SK.wta_volume(C, [C, C, C])
     with pytest.raises(ValueError, match="shape"):
         SK.wta_volume(C, [C[:, :2]])
